@@ -1,0 +1,52 @@
+"""22D information-form belief over chart GC-RIGHT-01 (port of
+``fl_slam_tpu/core/belief.py``). A plain NamedTuple of tensors; the
+hypothesis bank is an explicit leading K axis (K = 1 in this slice)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fl_slam_tpu_torch.config import D_Z, IDX_POSE
+from fl_slam_tpu_torch.core import se3
+from fl_slam_tpu_torch.core.linalg import spd_solve_lifted
+
+
+class Belief(NamedTuple):
+    L: torch.Tensor        # (..., 22, 22) information matrix
+    h: torch.Tensor        # (..., 22) information vector
+    anchor: torch.Tensor   # (..., 7) [t, quat wxyz] world anchor
+
+
+def identity_belief(dtype, device, prior_info: float = 1e-6,
+                    anchor=None) -> Belief:
+    """Weak identity prior; ``anchor`` is a 3-, 6- or 7-vector."""
+    L = torch.eye(D_Z, dtype=dtype, device=device) * prior_info
+    h = torch.zeros((D_Z,), dtype=dtype, device=device)
+    if anchor is None:
+        anchor = torch.zeros((3,), dtype=dtype, device=device)
+    anchor = torch.as_tensor(anchor, dtype=dtype, device=device)
+    if anchor.shape[-1] == 3:
+        anchor = torch.cat([anchor, torch.zeros_like(anchor)])
+    if anchor.shape[-1] == 6:
+        anchor = se3.pose7_from_pose6(anchor)
+    return Belief(L=L, h=h, anchor=anchor)
+
+
+def mean_increment(b: Belief, eps_lift: float = 1e-9):
+    return spd_solve_lifted(b.L, b.h, eps_lift)[0]
+
+
+def world_pose(b: Belief, eps_lift: float = 1e-9):
+    dz = mean_increment(b, eps_lift)
+    return se3.pose6_from_pose7(se3.pose7_plus(b.anchor, dz[..., IDX_POSE]))
+
+
+def world_pose_from_increment(b: Belief, dz):
+    return se3.pose6_from_pose7(se3.pose7_plus(b.anchor, dz[..., IDX_POSE]))
+
+
+def floor_and_normalize_weights(w, floor: float):
+    w = torch.clamp(w, min=floor)
+    return w / torch.sum(w, dim=-1, keepdim=True)
