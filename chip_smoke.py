@@ -9,16 +9,22 @@ Phases (any failure raises and the script exits non-zero without a result):
      source, in parallel) and print the build seconds;
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at production
-     shapes in f32, and time kernel, plain version and, where one exists,
-     the single PyTorch call computing the same function (``library_ms``);
-  4. replay ``GCConfig.tpu(belief_kernel=False)`` over 100 synthetic
-     drifting-odometry scans (seed 3, 10 chunks) after a one-chunk warm-up:
-     ms/scan, peak memory, ATE of SLAM and of raw odometry, each kernel's
-     launch count in that run (counts reset just before it) and the host
-     syncs that ``torch.cuda.set_sync_debug_mode("warn")`` reports inside
-     the replay;
-  5. replay 20 scans twice and require identical poses.
-Then it prints the ``kernels`` JSON line and, last, the ``ok`` line.
+     shapes, and time kernel, plain version and, where one exists, the
+     single PyTorch call computing the same function (``library_ms``):
+     K3/K4/K5 in f32; K1/K2 in f32 and f64 on two input sets, seeded SPD
+     operands and the operands captured from one scan of a
+     ``GCConfig.tpu()`` replay;
+  4. replay ``GCConfig.tpu()`` (the belief kernels K1/K2 on) and then
+     ``GCConfig.tpu(belief_kernel=False)`` over 100 synthetic
+     drifting-odometry scans each (seed 3, 10 chunks), each after a
+     one-chunk warm-up: ms/scan, peak memory, ATE of SLAM and of raw
+     odometry, each kernel's launch count in that run (counts reset just
+     before it) and the host syncs that
+     ``torch.cuda.set_sync_debug_mode("warn")`` reports inside the replay;
+  5. replay 20 scans of ``GCConfig.tpu()`` twice and require identical
+     poses.
+Then it prints the ``kernels`` JSON line (launches from the
+``GCConfig.tpu()`` replay) and, last, the ``ok`` line.
 The script imports nothing of JAX and nothing of ``fl_slam_tpu``.
 """
 
@@ -36,6 +42,12 @@ N_RERUN = 20
 SEED = 3
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
+# K1/K2 tolerances (max |kernel - plain| over max |plain|, per output). f32:
+# the JAX package's own device-vs-interpret gates for these kernels
+# (tests/test_tpu_kernels.py:95, :144). f64: rounding of reordered sums and
+# fused multiply-adds, carried through the 22x22 solves.
+BELIEF_TOL = {"predict_evidence": {"float32": 1e-3, "float64": 1e-9},
+              "scalar_tail": {"float32": 5e-4, "float64": 1e-9}}
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
@@ -61,6 +73,21 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of everything ``fn`` launches (torch.profiler),
+    free of the host time between launches that CUDA events also see."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) \
+        / 1e3 / reps
+
+
 def _bound_ms(n_bytes: float, n_ops: float):
     t_b = n_bytes / H100_BYTES_PER_S * 1e3
     t_o = n_ops / H100_F32_OPS_PER_S * 1e3
@@ -75,7 +102,7 @@ def check_kernels() -> list:
     from fl_slam_tpu_torch.structures import atlas_kernels
     from fl_slam_tpu_torch.structures.atlas import _cf_padded
 
-    cfg = GCConfig.tpu(belief_kernel=False)
+    cfg = GCConfig.tpu()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
@@ -199,19 +226,184 @@ def check_kernels() -> list:
     return rows
 
 
+def _seeded_belief_operands(seed: int):
+    """K1's 12 and K2's 18 operands (f64, on the CPU): SPD information and
+    covariances, unit anchors, the packed vector at the path's magnitudes."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.core import se3
+    from fl_slam_tpu_torch.ops import noise as noise_ops
+
+    g = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+
+    def spd(n, s=1.0):
+        A = torch.randn((n, n), generator=g, dtype=f64)
+        return A @ A.T * s + torch.eye(n, dtype=f64)
+
+    def vec(n, s=1.0):
+        return torch.randn((n,), generator=g, dtype=f64) * s
+
+    def pose7():
+        q = torch.randn((4,), generator=g, dtype=f64)
+        return torch.cat([vec(3), q / q.norm()])
+
+    L_prev = spd(22, 10.0)
+    sigma = torch.linalg.inv(L_prev + 1e-9 * torch.eye(22, dtype=f64))
+    pose_prev = vec(6, 0.1)
+    grav = torch.tensor([0.0, 0.0, 9.8], dtype=f64)
+    pk = torch.cat([
+        torch.tensor([0.1, 100.0, 0.1, 0.005, 0.95, 0.05], dtype=f64),
+        pose_prev, vec(3, 0.01), vec(3, 0.01), vec(3, 0.01), vec(3, 0.1),
+        vec(3, 0.1) + grav, vec(3, 0.5), vec(3, 0.1), vec(6, 0.1),
+        torch.tensor([0.05, 0.02, 0.99], dtype=f64) / 0.9925,
+        vec(3, 0.1) + grav, torch.tensor([0.999], dtype=f64), vec(6, 0.05),
+        torch.tensor([0.0], dtype=f64)])
+    pe = [L_prev, vec(22), pose7(), vec(22, 0.01), 0.5 * (sigma + sigma.T),
+          se3.so3_exp(pose_prev[3:6]), spd(22, 0.01), spd(3, 0.001),
+          spd(3, 0.01), spd(6, 0.01), spd(3, 0.1), pk]
+    cfg = GCConfig.tpu(dtype="float64")
+    pn = noise_ops.init_process_noise(cfg, "cpu")
+    mn = noise_ops.init_measurement_noise(cfg, "cpu")
+    tail = [spd(22, 10.0), vec(22), pose7(), vec(22, 0.01), spd(22, 2.0),
+            vec(22), vec(22, 0.01), spd(22), vec(22), vec(6, 0.01), pn.nu,
+            pn.psi, mn.nu, mn.psi, spd(3, 0.01), spd(3, 0.01), spd(3, 0.01),
+            torch.tensor([100.0, 50.0, 10.0, 0.001, 5.0], dtype=f64)]
+    return pe, tail
+
+
+def _captured_belief_operands(cfg, n_scans: int = 10):
+    """The operands K1 and K2 receive on the last scan of a short
+    ``GCConfig.tpu()`` replay (copied on the way in)."""
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.ops import belief_kernels
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    seen = {}
+    pe_fn = belief_kernels.predict_evidence_packed
+    tail_fn = belief_kernels.scalar_tail_packed
+
+    def pe_hook(c, *ops):
+        seen["pe"] = [t.clone() for t in ops]
+        return pe_fn(c, *ops)
+
+    def tail_hook(c, *ops):
+        seen["tail"] = [t.clone() for t in ops]
+        return tail_fn(c, *ops)
+
+    ds = simulate(cfg, n_scans=n_scans, seed=SEED + 1,
+                  odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+    belief_kernels.predict_evidence_packed = pe_hook
+    belief_kernels.scalar_tail_packed = tail_hook
+    try:
+        replay(init_state(cfg, anchor0=ds.gt_poses[0],
+                          t0=float(ds.gt_stamps[0]) - 0.1),
+               to_scan_inputs(ds, cfg), cfg)
+    finally:
+        belief_kernels.predict_evidence_packed = pe_fn
+        belief_kernels.scalar_tail_packed = tail_fn
+    return seen["pe"], seen["tail"]
+
+
+def _belief_work(name: str, itemsize: int):
+    """(bytes, operations) of one call: each input read once and each
+    output written once; multiply-adds counted as two operations. The 22x22
+    Cholesky is n^3/3, a triangular pair with m right-hand sides 2 n^2 m,
+    a matrix product 2 n^3; the scalar SE(3) chain is ~3e3 operations."""
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    n = 22
+    chol, solve1 = n ** 3 / 3, 2 * n * n
+    if name == "predict_evidence":
+        n_in = 7 + 22 + 3 * n * n + 9 * 4 + 36 + bk.PK_LEN
+        n_out = bk.out_len(bk.PE_OUT)
+        ops = (2 * 2 * n ** 3 + 2 * chol + solve1 * (n + 1)
+               + 6 ** 3 / 3 + 2 * 36 * 6 + 4 * solve1 + 12 * n * n + 3e3)
+    else:
+        n_in = 4 * n * n + 6 * n + 7 + 6 + 7 + 252 + 3 + 27 + 27 + 5
+        n_out = bk.out_len(bk.TAIL_OUT)
+        ops = (2 * chol + solve1 * (n + 2) + 6 ** 3 / 3 + 2 * 36
+               + 3 * solve1 + 14 * n * n + 7 * 36 * 4 + 3e3)
+    return (n_in + n_out) * itemsize, ops
+
+
+def check_belief_kernels() -> list:
+    """Phase 3, K1 and K2: kernel against plain version (both on the card)
+    in f32 and f64, on seeded and on captured operands."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+
+    cfg = GCConfig.tpu()
+    dev = torch.device("cuda")
+    seeded = _seeded_belief_operands(SEED)
+    captured = _captured_belief_operands(cfg)
+    fns = {"predict_evidence": (bk.predict_evidence_packed, bk.pe_math_plain,
+                                0, "fl_slam_tpu/ops/belief_kernels.py:1344"),
+           "scalar_tail": (bk.scalar_tail_packed, bk.tail_math_plain, 1,
+                           "fl_slam_tpu/ops/belief_kernels.py:676")}
+    rows = []
+    for name, (kern, plain, k, replaces) in fns.items():
+        checks, timed = [], None
+        for inputs, ops in (("seeded", seeded[k]), ("captured",
+                                                    captured[k])):
+            for dt in (torch.float32, torch.float64):
+                x = [t.to(dev, dt) for t in ops]
+                got = kern(cfg, *x)
+                want = plain(cfg, *x)
+                torch.cuda.synchronize()
+                abs_err = max((a - b).abs().max().item()
+                              for a, b in zip(got, want))
+                rel_err = max(((a - b).abs().max()
+                               / b.abs().max().clamp(min=1e-30)).item()
+                              for a, b in zip(got, want))
+                finite = all(bool(torch.isfinite(a).all()) for a in got)
+                dname = str(dt).replace("torch.", "")
+                tol = BELIEF_TOL[name][dname]
+                checks.append(dict(inputs=inputs, dtype=dname,
+                                   max_abs_err=abs_err, max_rel_err=rel_err,
+                                   tolerance=tol))
+                if not (finite and rel_err <= tol):
+                    raise AssertionError(
+                        f"{name} ({inputs}, {dname}) mismatch: relative "
+                        f"{rel_err} > {tol} (finite={finite})")
+                if inputs == "captured" and dt == torch.float32:
+                    timed = x
+        nb, ops = _belief_work(name, 4)
+        bound, by = _bound_ms(nb, ops)
+        main = [c for c in checks if c["inputs"] == "captured"
+                and c["dtype"] == "float32"][0]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"fl_slam_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            site="belief chain", max_abs_err=main["max_abs_err"],
+            max_rel_err=main["max_rel_err"], tolerance=main["tolerance"],
+            tolerance_is="max |kernel - plain| / max |plain|, per output",
+            ms=_time_ms(lambda: kern(cfg, *timed)),
+            device_ms=_device_ms(lambda: kern(cfg, *timed)),
+            plain_ms=_time_ms(lambda: plain(cfg, *timed), reps=5),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape="22x22 belief, f32 (captured operands)", checks=checks))
+    return rows
+
+
 def _reset_counts():
-    from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
+    from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
+                                       surfel_kernels)
     from fl_slam_tpu_torch.structures import atlas_kernels
     assoc_kernels.launches = 0
     atlas_kernels.launches = 0
-    for k in surfel_kernels.launches:
-        surfel_kernels.launches[k] = 0
+    for counts in (surfel_kernels.launches, belief_kernels.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _read_counts() -> dict:
-    from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
+    from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
+                                       surfel_kernels)
     from fl_slam_tpu_torch.structures import atlas_kernels
-    return {"sinkhorn_piT": assoc_kernels.launches,
+    return {"predict_evidence": belief_kernels.launches["predict_evidence"],
+            "scalar_tail": belief_kernels.launches["scalar_tail"],
+            "sinkhorn_piT": assoc_kernels.launches,
             "moment_segment_sum[surfels]": surfel_kernels.launches["surfels"],
             "moment_segment_sum[fuse]": surfel_kernels.launches["fuse"],
             "conditional_slab_exchange_ff": atlas_kernels.launches}
@@ -221,21 +413,13 @@ def _slice(scans, n):
     return type(scans)(*[f[:n] for f in scans])
 
 
-def main_path() -> dict:
-    """Phase 4 + 5: the production replay on the card."""
+def run_replay(cfg, label: str, want: dict, ds, scans) -> dict:
+    """Phase 4 for one configuration: warm-up chunk, then the counted,
+    sync-checked replay of all scans."""
     import numpy as np
     import torch
-    from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.eval.metrics import ate
-    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
     from fl_slam_tpu_torch.pipeline import init_state, replay
-
-    cfg = GCConfig.tpu(belief_kernel=False)
-    t0 = time.perf_counter()
-    ds = simulate(cfg, n_scans=N_SCANS, seed=SEED, odom_drift_vel_scale=1.03,
-                  odom_drift_yaw_rate=0.01)
-    scans = to_scan_inputs(ds, cfg)
-    t_stage = time.perf_counter() - t0
 
     def fresh():
         return init_state(cfg, anchor0=ds.gt_poses[0],
@@ -264,39 +448,66 @@ def main_path() -> dict:
     peak = torch.cuda.max_memory_allocated()
     poses = out.pose.cpu().numpy()
     if not np.isfinite(poses).all():
-        raise AssertionError("non-finite poses in the production replay")
+        raise AssertionError(f"non-finite poses in the {label} replay")
     m = ate(poses, ds.gt_poses, align="initial")
     m_odom = ate(ds.scans["odom_pose"], ds.gt_poses, align="initial")
-    want = {"sinkhorn_piT": N_SCANS,
-            "moment_segment_sum[surfels]": N_SCANS,
-            "moment_segment_sum[fuse]": N_SCANS,
-            "conditional_slab_exchange_ff": N_SCANS // R}
     for name, n in counts.items():
-        if n == 0 or n != want[name]:
-            raise AssertionError(f"{name}: {n} launches in the main path, "
-                                 f"expected {want[name]}")
+        if n != want[name]:
+            raise AssertionError(f"{label}: {name} launched {n} times in "
+                                 f"the main path, expected {want[name]}")
+    if syncs:
+        raise AssertionError(f"{label}: {syncs} host syncs in the replay")
     for key in ("trans", "rot_deg"):
         if not m[key]["rmse"] < m_odom[key]["rmse"]:
-            raise AssertionError(f"SLAM does not beat odometry on {key}: "
-                                 f"{m[key]['rmse']} vs {m_odom[key]['rmse']}")
+            raise AssertionError(
+                f"{label}: SLAM does not beat odometry on {key}: "
+                f"{m[key]['rmse']} vs {m_odom[key]['rmse']}")
     result = dict(
-        config="GCConfig.tpu(belief_kernel=False)", scans=N_SCANS,
-        chunks=N_SCANS // R, staging_s=t_stage,
+        config=label, scans=N_SCANS, chunks=N_SCANS // R,
         ms_per_scan=t_run / N_SCANS * 1e3, peak_mem_bytes=peak,
         ate_trans_m=m["trans"]["rmse"], ate_rot_deg=m["rot_deg"]["rmse"],
         odom_ate_trans_m=m_odom["trans"]["rmse"],
         odom_ate_rot_deg=m_odom["rot_deg"]["rmse"],
-        launches=counts, host_syncs_in_replay=syncs,
-        sync_messages=sorted({str(w.message)[:160] for w in caught
-                              if _SYNC_WARNING in str(w.message)})[:5])
+        launches=counts, host_syncs_in_replay=syncs)
     print("replay: " + json.dumps(result), flush=True)
+    return counts
+
+
+def main_path() -> dict:
+    """Phase 4 + 5: the production replay on the card, both belief
+    branches, then the rerun check."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    cfg = GCConfig.tpu()
+    t0 = time.perf_counter()
+    ds = simulate(cfg, n_scans=N_SCANS, seed=SEED, odom_drift_vel_scale=1.03,
+                  odom_drift_yaw_rate=0.01)
+    scans = to_scan_inputs(ds, cfg)
+    print(f"staging: {time.perf_counter() - t0:.2f} s", flush=True)
+    R = cfg.view_refresh_every
+    per_scan = {"sinkhorn_piT": N_SCANS,
+                "moment_segment_sum[surfels]": N_SCANS,
+                "moment_segment_sum[fuse]": N_SCANS,
+                "conditional_slab_exchange_ff": N_SCANS // R}
+    counts = run_replay(cfg, "GCConfig.tpu()", dict(
+        per_scan, predict_evidence=N_SCANS, scalar_tail=N_SCANS), ds, scans)
+    run_replay(GCConfig.tpu(belief_kernel=False),
+               "GCConfig.tpu(belief_kernel=False)",
+               dict(per_scan, predict_evidence=0, scalar_tail=0), ds, scans)
 
     # Phase 5: two 20-scan replays from fresh states give identical poses.
+    def fresh():
+        return init_state(cfg, anchor0=ds.gt_poses[0],
+                          t0=float(ds.gt_stamps[0]) - 0.1)
+
     p1 = replay(fresh(), _slice(scans, N_RERUN), cfg)[1].pose
     p2 = replay(fresh(), _slice(scans, N_RERUN), cfg)[1].pose
     same = bool(torch.equal(p1, p2))
-    print(f"rerun: {N_RERUN} scans twice, identical poses: {same}",
-          flush=True)
+    print(f"rerun: GCConfig.tpu(), {N_RERUN} scans twice, identical poses: "
+          f"{same}", flush=True)
     if not same:
         raise AssertionError("reruns differ")
     return counts
@@ -321,7 +532,7 @@ def main() -> int:
           f"fl_slam_tpu_torch/csrc in {seconds:.1f} s", flush=True)
     print(_card_line(), flush=True)
 
-    rows = check_kernels()
+    rows = check_kernels() + check_belief_kernels()
     counts = main_path()
     for row in rows:
         name = row["name"]

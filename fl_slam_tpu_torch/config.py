@@ -461,9 +461,11 @@ class GCConfig:
     # (_fuse_base_rows) — a negative scale would SUBTRACT camera precision
     # from fused primitives and silently break the Lambda^-1 theta decode.
     camera_fuse_geom_scale: float = 1.0
-    # Run the per-scan scalar belief tail (steps 9-15 + IW apply) as one
-    # Pallas kernel (ops/belief_kernels.py) — only active on TPU at k_hyp=1;
-    # K>1/MHT and CPU use the XLA reference path. Same vmap caveat.
+    # Run the K=1 belief chain as the two belief kernels
+    # (ops/belief_kernels.py): K1 predict + evidence, K2 the scalar tail
+    # (steps 9-15 + IW apply). In the port this holds on every device: a
+    # CUDA tensor launches the kernels, a CPU tensor runs their plain
+    # versions. False = the op-by-op branch (the reference's XLA path).
     belief_kernel: bool = True
     # Run merge-reduce once per view chunk (on the freshly gathered view at
     # _chunk_begin — exactly when newly written-back/inserted duplicates
@@ -643,21 +645,16 @@ DEFAULT_CONFIG = GCConfig()
 
 
 # Switches the port does not run yet: (predicate on the config, message).
-# Each message names the slice that adds the path.
+# Each message names the slice that adds the path. The main path,
+# GCConfig.tpu() (with or without belief_kernel and odom_pose_relative),
+# passes.
 _UNPORTED = (
     (lambda c: c.k_hyp != 1,
      "k_hyp > 1 (the MHT hypothesis bank) comes with the K>1 bank slice"),
-    (lambda c: c.belief_kernel,
-     "belief_kernel=True runs the K1 predict_evidence and K2 scalar_tail "
-     "kernels; they come with the next slice (GCConfig.tpu() itself). Pass "
-     "belief_kernel=False"),
     (lambda c: c.view_page == 0,
      "view_page=0 (the per-slot view path) comes with a later slice"),
     (lambda c: c.camera_insert_novelty_floor > 0.0,
      "camera_insert_novelty_floor > 0 comes with the camera slice"),
-    (lambda c: c.odom_pose_relative,
-     "odom_pose_relative=True (the relative odometry factor) comes with the "
-     "next slice, beside the K1 kernel's relative-odometry branch"),
     (lambda c: c.select_kernel,
      "select_kernel=True (fused candidate selection, K9) comes with a later "
      "slice"),
@@ -666,15 +663,16 @@ _UNPORTED = (
      "batched-instances slice"),
     (lambda c: not (c.sinkhorn_kernel and c.surfel_moment_kernel
                     and c.fuse_moment_kernel and c.slab_dma_kernel),
-     "the port always runs its Sinkhorn, moment and slab-exchange kernels "
-     "on CUDA tensors (their plain versions on CPU tensors); the reference "
-     "turns them off for batched replicas, which come with the "
-     "batched-instances slice"),
+     "the port runs GCConfig.tpu() with its Sinkhorn, moment and "
+     "slab-exchange kernels always on (CUDA tensors; their plain versions "
+     "on CPU tensors); the reference turns them off for batched replicas, "
+     "which come with the batched-instances slice"),
 )
 
 
 def require_slice(cfg: GCConfig) -> GCConfig:
-    """Raise NotImplementedError for a switch this slice does not port."""
+    """Raise NotImplementedError for a switch the port does not run yet
+    (``GCConfig.tpu()``, the main path, passes)."""
     for unported, msg in _UNPORTED:
         if unported(cfg):
             raise NotImplementedError(f"fl_slam_tpu_torch: {msg}")

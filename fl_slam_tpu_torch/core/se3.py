@@ -134,6 +134,16 @@ def se3_relative(a, b):
     return se3_compose(se3_inverse(a), b)
 
 
+def se3_plus(pose, xi):
+    """Right-chart update pose o Exp(xi)."""
+    return se3_compose(pose, se3_exp(xi))
+
+
+def se3_minus(a, b):
+    """Log(b^{-1} o a), so that se3_plus(b, se3_minus(a, b)) == a."""
+    return se3_log(se3_relative(b, a))
+
+
 def quat_from_rotvec(w):
     theta_sq = torch.sum(w * w, dim=-1)
     theta = torch.sqrt(theta_sq)

@@ -23,9 +23,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("sinkhorn", "moment", "slab_exchange")
+SOURCES = ("sinkhorn", "moment", "slab_exchange", "predict_evidence",
+           "scalar_tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# The belief kernels round every product, as their plain versions do: K1's
+# accel-noise moments (M2 - f m1^T - m1 f^T + sw f f^T) cancel to ~1e-3 of
+# their terms, and fused multiply-adds there moved the f32 result 1e-3
+# relative away from the plain version (H100, captured operands).
+EXTRA_FLAGS = {"predict_evidence": ("-fmad=false",),
+               "scalar_tail": ("-fmad=false",)}
 
 _LIBS: dict = {}
 
@@ -42,7 +49,7 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha1()
+    h = hashlib.sha1(" ".join(EXTRA_FLAGS.get(name, ())).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
@@ -59,8 +66,8 @@ def build(names=SOURCES) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-               str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-I",
+               str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

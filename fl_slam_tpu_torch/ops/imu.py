@@ -194,6 +194,17 @@ def gravity_resultant(accel, gyro, weights, accel_bias, dt_imu,
             "transport_sigma": transport_sigma, "rel_mean": torch.mean(rel)}
 
 
+def accel_moments(accel, weights, accel_bias, eps_mass: float):
+    """Pose-independent moments (M2, m1, sw) of the debiased specific force
+    under sum-normalized weights: M2 - f m1^T - m1 f^T + sw f f^T is
+    ``accel_iw_suffstats``' weighted outer product at any gravity reaction
+    f (K1 takes them; the reductions over the window stay outside it)."""
+    w = weights / (torch.sum(weights) + eps_mass)
+    x = accel - accel_bias
+    return (torch.einsum("m,mi,mj->ij", w, x, x),
+            torch.einsum("m,mi->i", w, x), torch.sum(w))
+
+
 def gravity_vmf_evidence(rotvec_wb, accel, gyro, weights, accel_bias,
                          gravity_w, dt_imu, *, eps_psd: float,
                          eps_mass: float, eps_r: float, blend_r0: float,

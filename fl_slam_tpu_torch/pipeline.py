@@ -1,14 +1,18 @@
 """The per-scan inference step and the chunked replay (port of
-``fl_slam_tpu/pipeline.py`` on the slice's path: ``init_state``,
-``_chunk_begin``, ``_scan_core`` with the XLA belief branch, ``_chunk_end``,
-``process_scan``, ``flush_slabs`` and the chunked ``replay``).
+``fl_slam_tpu/pipeline.py`` on the ported path: ``init_state``,
+``_chunk_begin``, ``_scan_core``, ``_chunk_end``, ``process_scan``,
+``flush_slabs`` and the chunked ``replay``).
 
-The hypothesis bank keeps an explicit leading K axis (K = 1 in this slice:
-``config.require_slice``); the per-hypothesis algebra runs on hypothesis 0.
-``lax.scan`` becomes a Python loop over chunks of R = ``view_refresh_every``
-scans. Nothing on the per-scan path reads a device value on the host: the
-chunk-boundary ``refresh`` flag stays a device tensor that the slab-exchange
-kernel (K5) reads.
+``_scan_core`` has the reference's two belief branches: with
+``belief_kernel`` (``GCConfig.tpu()``) the K=1 chain runs as the kernels K1
+``predict_evidence`` and K2 ``scalar_tail``; without it, op by op (the
+reference's XLA branch). The hypothesis bank keeps an explicit leading K
+axis (K = 1: ``config.require_slice``); the per-hypothesis algebra runs on
+hypothesis 0. ``lax.scan`` becomes a Python loop over chunks of R =
+``view_refresh_every`` scans. Nothing on the per-scan path reads a device
+value on the host: the chunk-boundary ``refresh`` flag stays a device tensor
+that the slab-exchange kernel (K5) reads, and the first-scan flag of the
+relative odometry factor is a device value.
 
 State ownership: ``replay`` / ``process_scan`` consume the state they are
 given. The tile pool and the resident slabs are updated in place (the
@@ -34,6 +38,7 @@ from fl_slam_tpu_torch.core.hexgrid import (stencil_offsets_3d,
                                             xyz_to_tile_axial)
 from fl_slam_tpu_torch.core.linalg import spd_inverse_lifted, spd_solve_lifted
 from fl_slam_tpu_torch.ops import association as assoc_ops
+from fl_slam_tpu_torch.ops import belief_kernels
 from fl_slam_tpu_torch.ops import deskew as deskew_ops
 from fl_slam_tpu_torch.ops import fusion as fusion_ops
 from fl_slam_tpu_torch.ops import hypothesis as hyp_ops
@@ -112,6 +117,9 @@ class ViewCtx(NamedTuple):
     certs: dict
     put_pages: torch.Tensor
     page_stats: tuple
+
+
+_PE_GRAV_PROJ = belief_kernels.PE_CERT_KEYS.index("imu_grav.psd_projection")
 
 
 def _kw_view(cfg: GCConfig) -> int:
@@ -244,7 +252,8 @@ def process_scan(state: PipelineState, scan: ScanInput, cfg: GCConfig,
 
 def _predict_and_evidence(bel_prev, mu_prev, sigma_prev, *, scan, cfg, Q,
                           dt_sec, motion, sigma_g, sigma_a, dt_int, dt_imu,
-                          w_int, accel_bias, gravity_w, omega_avg, pre_int):
+                          w_int, accel_bias, gravity_w, omega_avg, pre_int,
+                          odom_prev6, first_scan):
     """Steps 2 + 6 for one hypothesis: mechanized predict and the IMU /
     odometry evidence at the prediction; returns the linearization point."""
     k_certs: dict = {}
@@ -260,9 +269,26 @@ def _predict_and_evidence(bel_prev, mu_prev, sigma_prev, *, scan, cfg, Q,
     L_io = torch.zeros_like(belief_pred.L)
     h_io = torch.zeros_like(belief_pred.h)
 
-    L1, h1, dz_odom, c = odom_ops.quadratic_pose_evidence(
-        pose_pred, scan.odom_pose, scan.odom_cov, eps_psd=cfg.eps_psd,
-        eps_lift=cfg.eps_lift, rot_scale=cfg.odom_pose_rot_scale)
+    if cfg.odom_pose_relative:
+        # Relative target: the previous estimate composed with the odometry
+        # increment (the first scan anchors on the absolute pose), blended
+        # with an odom_pose_mix share of the absolute factor.
+        tgt = se3.se3_plus(pose_prev, se3.se3_minus(scan.odom_pose,
+                                                    odom_prev6))
+        target = torch.where(first_scan, scan.odom_pose, tgt)
+        L1r, h1r, dz_odom, c = odom_ops.quadratic_pose_evidence(
+            pose_pred, target, scan.odom_cov, eps_psd=cfg.eps_psd,
+            eps_lift=cfg.eps_lift)
+        L1a, h1a, _, _ = odom_ops.quadratic_pose_evidence(
+            pose_pred, scan.odom_pose, scan.odom_cov, eps_psd=cfg.eps_psd,
+            eps_lift=cfg.eps_lift, rot_scale=cfg.odom_pose_rot_scale)
+        mix = cfg.odom_pose_mix
+        L1 = (1.0 - mix) * L1r + mix * L1a
+        h1 = (1.0 - mix) * h1r + mix * h1a
+    else:
+        L1, h1, dz_odom, c = odom_ops.quadratic_pose_evidence(
+            pose_pred, scan.odom_pose, scan.odom_cov, eps_psd=cfg.eps_psd,
+            eps_lift=cfg.eps_lift, rot_scale=cfg.odom_pose_rot_scale)
     L_io = L_io + cfg.odom_pose_weight * L1
     h_io = h_io + cfg.odom_pose_weight * h1
     k_certs.update(c)
@@ -395,9 +421,68 @@ def _fuse_and_recompose(belief_pred, mu_pred, L_io, h_io, z_lin, *, L_vis,
     return belief_rec, z_lin_new, dz_new, dpsi_q, dnu_q, k_certs
 
 
+def _xla_tail(state, cfg, bel_pred, mu_pred, L_io, h_io, z_lin, dz_odom,
+              L_vis, h_vis_rel, dpsi_gyro, dpsi_accel, dpsi_lidar, *, ess_imu,
+              ot_ess, ot_cost, grav_proj):
+    """Steps 9-15 and the IW apply op by op (the branch without the belief
+    kernels); also the visual-only pose correction certs, which K2 emits
+    itself on the kernel branch."""
+    certs: dict = {}
+    dt = mu_pred.dtype
+    Lp6_d = L_vis[IDX_POSE, IDX_POSE]
+    lift6 = 1e-9 + 1e-6 * torch.trace(Lp6_d) / 6.0
+    dz_vis, _ = spd_solve_lifted(Lp6_d, h_vis_rel[IDX_POSE]
+                                 + Lp6_d @ z_lin[IDX_POSE], lift6)
+    dz_vis_rel = dz_vis - z_lin[IDX_POSE]
+    certs["visual.implied_dtrans_norm"] = torch.linalg.norm(dz_vis_rel[:3])
+    certs["visual.implied_dz"] = dz_vis_rel[2]
+    certs["visual.implied_drot_norm"] = torch.linalg.norm(dz_vis_rel[3:6])
+
+    bel_rec, z_lin_new, dz_new, dpsi_q0, dnu_q0, kc = _fuse_and_recompose(
+        bel_pred, mu_pred, L_io, h_io, z_lin, L_vis=L_vis,
+        h_vis_rel=h_vis_rel, ess_imu=ess_imu, ot_ess=ot_ess, ot_cost=ot_cost,
+        grav_proj=grav_proj, cfg=cfg)
+    certs.update(kc)
+    w_hyp = floor_and_normalize_weights(state.hyp_weights,
+                                        cfg.hyp_weight_floor)
+    dpsi_q = torch.einsum("k,kabc->abc", w_hyp, dpsi_q0[None])
+    dnu_q = torch.einsum("k,ka->a", w_hyp, dnu_q0[None])
+    xi_t = torch.clamp(dz_odom[:3], -cfg.innovation_clip_trans,
+                       cfg.innovation_clip_trans)
+    xi_r = torch.clamp(dz_odom[3:6], -cfg.innovation_clip_rot,
+                       cfg.innovation_clip_rot)
+    dpsi_q[0, :3, :3] += cfg.innovation_q_trans * torch.outer(xi_t, xi_t)
+    dpsi_q[1, :3, :3] += cfg.innovation_q_rot * torch.outer(xi_r, xi_r)
+
+    bel_fin, z_drift, c = recompose_ops.anchor_drift_update(
+        bel_rec, z_lin_new, m0=cfg.anchor_drift_m0, r0=cfg.anchor_drift_r0,
+        eps_lift=cfg.eps_lift, dz=dz_new)
+    certs.update(c)
+    L_bar, h_bar, _, w_norm, c = hyp_ops.barycenter_projection(
+        bel_fin.L[None], bel_fin.h[None], z_lin_new[None], w_hyp,
+        weight_floor=cfg.hyp_weight_floor, eps_psd=cfg.eps_psd,
+        eps_lift=cfg.eps_lift, means=z_drift[None])
+    certs.update(c)
+    pose_out = world_pose(Belief(L=L_bar, h=h_bar, anchor=bel_fin.anchor),
+                          cfg.eps_lift)
+    proc_noise, c = noise_ops.process_apply_suffstats(
+        state.process_noise, dpsi_q, dnu_q, cfg)
+    certs.update(c)
+    meas_noise, c = noise_ops.measurement_apply_suffstats(
+        state.meas_noise, torch.stack([dpsi_gyro, dpsi_accel, dpsi_lidar]),
+        torch.ones((3,), dtype=dt, device=mu_pred.device), cfg)
+    certs.update(c)
+    Sigma_next, _ = spd_inverse_lifted(bel_fin.L[None], cfg.eps_lift)
+    Sigma_next = 0.5 * (Sigma_next + Sigma_next.transpose(-1, -2))
+    mu_next = torch.einsum("kij,kj->ki", Sigma_next, bel_fin.h[None])
+    pose_prev7_next = se3.pose7_plus(bel_fin.anchor, mu_next[0, IDX_POSE])
+    return (bel_fin, bel_rec.anchor, pose_out, w_norm, proc_noise,
+            meas_noise, mu_next, Sigma_next, pose_prev7_next, certs)
+
+
 def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
                cfg: GCConfig):
-    """One scan against the chunk's resident view (XLA belief branch)."""
+    """One scan against the chunk's resident view (either belief branch)."""
     dt = cfg.torch_dtype
     certs: dict = dict(ctx.certs)
     seq = state.scan_seq
@@ -466,17 +551,56 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
     # ---- steps 2 + 6: predict + IMU/odometry evidence (hypothesis 0) ---------
     bel_prev0 = Belief(L=state.belief.L[0], h=state.belief.h[0],
                        anchor=state.belief.anchor[0])
-    bel_pred, mu_pred, L_io, h_io, z_lin, dz_odom, kc = _predict_and_evidence(
-        bel_prev0, mu_prev0, state.Sigma[0], scan=scan, cfg=cfg, Q=Q,
-        dt_sec=dt_sec, motion=motion, sigma_g=sigma_g, sigma_a=sigma_a,
-        dt_int=dt_int, dt_imu=dt_imu, w_int=w_int, accel_bias=accel_bias,
-        gravity_w=gravity_w, omega_avg=omega_avg, pre_int=pre_int)
-    certs.update(kc)
-    z_lin_pose = se3.pose7_plus(bel_pred.anchor, z_lin[IDX_POSE])
-    dpsi_accel = imu_ops.accel_iw_suffstats(
-        world_pose_from_increment(bel_pred, mu_pred)[3:6], scan.imu_accel,
-        w_int, accel_bias, gravity_w, dt_imu, eps_mass=cfg.eps_mass,
-        eps_psd=cfg.eps_psd)
+    first_scan = state.scan_seq == 0
+    if cfg.belief_kernel:
+        # K1: the whole per-pose chain in one kernel; the reductions over
+        # the IMU window stay outside (the resultant's masked median, the
+        # accel moments). K1 takes the previous rotation from R_prev.
+        grav = imu_ops.gravity_resultant(scan.imu_accel, scan.imu_gyro,
+                                         w_int, accel_bias, dt_imu,
+                                         cfg.eps_mass)
+        acc_M2, acc_m1, acc_sw = imu_ops.accel_moments(
+            scan.imu_accel, w_int, accel_bias, cfg.eps_mass)
+        (L_pred, h_pred, mu_pred, L_io, h_io, z_lin, dz_odom, z_lin_pose,
+         dpsi_accel, pe_certs, R_zlin) = belief_kernels.predict_evidence(
+            cfg, bel_prev0.L, bel_prev0.h, bel_prev0.anchor, mu_prev0,
+            state.Sigma[0], state.R_prev, Q, sigma_g, sigma_a, scan.odom_cov,
+            acc_M2, dt_sec=dt_sec, pre_ess=pre_int["ess"], dt_int=dt_int,
+            dt_imu=dt_imu, grav_rbar=grav["rbar"],
+            transport_sigma=grav["transport_sigma"],
+            pose_prev=torch.cat([state.pose_prev7[0:3],
+                                 torch.zeros_like(state.pose_prev7[0:3])]),
+            motion_rot=motion.delta_rotvec, motion_p=motion.delta_p_body,
+            motion_v=motion.delta_v_body, omega_avg=omega_avg,
+            a_body_mean=pre_int["a_body_mean"], odom_vel=scan.odom_vel_body,
+            odom_omega=scan.odom_omega_body, odom_pose=scan.odom_pose,
+            grav_xbar=grav["xbar"], acc_m1=acc_m1, acc_sw=acc_sw,
+            odom_rel=se3.se3_minus(scan.odom_pose, state.odom_prev6),
+            first_scan=first_scan.to(dt))
+        certs["__packed__:pe"] = pe_certs
+        certs["imu_grav.rbar"] = grav["rbar"]
+        certs["imu_grav.ess"] = grav["ess_w"]
+        certs["imu_grav.reliability_mean"] = grav["rel_mean"]
+        certs["imu_grav.transport_sigma"] = grav["transport_sigma"]
+        certs["imu_grav.ess_ratio"] = grav["ess_w"] / (grav["ess_raw"]
+                                                       + cfg.eps_mass)
+        bel_pred = Belief(L=L_pred, h=h_pred, anchor=bel_prev0.anchor)
+    else:
+        bel_pred, mu_pred, L_io, h_io, z_lin, dz_odom, kc = \
+            _predict_and_evidence(
+                bel_prev0, mu_prev0, state.Sigma[0], scan=scan, cfg=cfg, Q=Q,
+                dt_sec=dt_sec, motion=motion, sigma_g=sigma_g,
+                sigma_a=sigma_a, dt_int=dt_int, dt_imu=dt_imu, w_int=w_int,
+                accel_bias=accel_bias, gravity_w=gravity_w,
+                omega_avg=omega_avg, pre_int=pre_int,
+                odom_prev6=state.odom_prev6, first_scan=first_scan)
+        certs.update(kc)
+        R_zlin = None
+        z_lin_pose = se3.pose7_plus(bel_pred.anchor, z_lin[IDX_POSE])
+        dpsi_accel = imu_ops.accel_iw_suffstats(
+            world_pose_from_increment(bel_pred, mu_pred)[3:6],
+            scan.imu_accel, w_int, accel_bias, gravity_w, dt_imu,
+            eps_mass=cfg.eps_mass, eps_psd=cfg.eps_psd)
 
     # ---- step 7: map branch ---------------------------------------------------
     surf, c = surfel_ops.extract_surfels(points_dsk, w_dsk, cfg)
@@ -485,7 +609,8 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         Lambdas=scan.cam_Lambdas, thetas=scan.cam_thetas,
         etas=scan.cam_etas, weights=scan.cam_weights,
         valid=scan.cam_valid > 0.5, colors=scan.cam_colors))
-    batch_w = mb.transform_to_world(batch, z_lin_pose, eps_lift=cfg.eps_lift)
+    batch_w = mb.transform_to_world(batch, z_lin_pose, eps_lift=cfg.eps_lift,
+                                    R=R_zlin)
     sff = state.slabs
     view = atlas_ops.view_from_rows(ctx.rows, ctx.slab_cols, ctx.dup,
                                     ctx.prim_ids, sff.ff.shape[1], cfg)
@@ -501,65 +626,48 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         mu_w, batch_w.Lambdas, dir_w, kap, batch_w.valid, assoc, view,
         z_lin_pose, cfg, scan_seq=seq)
     certs.update(c)
-    Lp6_d = L_vis[IDX_POSE, IDX_POSE]
-    lift6 = 1e-9 + 1e-6 * torch.trace(Lp6_d) / 6.0
-    dz_vis, _ = spd_solve_lifted(Lp6_d, h_vis_rel[IDX_POSE]
-                                 + Lp6_d @ z_lin[IDX_POSE], lift6)
-    dz_vis_rel = dz_vis - z_lin[IDX_POSE]
-    certs["visual.implied_dtrans_norm"] = torch.linalg.norm(dz_vis_rel[:3])
-    certs["visual.implied_dz"] = dz_vis_rel[2]
-    certs["visual.implied_drot_norm"] = torch.linalg.norm(dz_vis_rel[3:6])
-
     r_lidar = torch.einsum("nk,nki->ni", assoc.responsibilities,
                            assoc.cand_packed[..., 0:3] - mu_w[:, None, :])
     row_m = torch.clamp(assoc.row_masses, min=cfg.eps_mass)
     dpsi_lidar = noise_ops.lidar_iw_suffstats(
         r_lidar / row_m[:, None], assoc.row_masses, cfg.eps_mass, cfg.eps_psd)
 
-    # ---- steps 9-13 (hypothesis 0) + IW apply --------------------------------
-    bel_rec, z_lin_new, dz_new, dpsi_q0, dnu_q0, kc = _fuse_and_recompose(
-        bel_pred, mu_pred, L_io, h_io, z_lin, L_vis=L_vis,
-        h_vis_rel=h_vis_rel, ess_imu=pre_int["ess"], ot_ess=certs["ot.ess"],
-        ot_cost=certs["ot.total_cost"],
-        grav_proj=certs["imu_grav.psd_projection"], cfg=cfg)
-    certs.update(kc)
-    w_hyp = floor_and_normalize_weights(state.hyp_weights,
-                                        cfg.hyp_weight_floor)
-    dpsi_q = torch.einsum("k,kabc->abc", w_hyp, dpsi_q0[None])
-    dnu_q = torch.einsum("k,ka->a", w_hyp, dnu_q0[None])
-    xi_t = torch.clamp(dz_odom[:3], -cfg.innovation_clip_trans,
-                       cfg.innovation_clip_trans)
-    xi_r = torch.clamp(dz_odom[3:6], -cfg.innovation_clip_rot,
-                       cfg.innovation_clip_rot)
-    dpsi_q[0, :3, :3] += cfg.innovation_q_trans * torch.outer(xi_t, xi_t)
-    dpsi_q[1, :3, :3] += cfg.innovation_q_rot * torch.outer(xi_r, xi_r)
-
-    bel_fin, z_drift, c = recompose_ops.anchor_drift_update(
-        bel_rec, z_lin_new, m0=cfg.anchor_drift_m0, r0=cfg.anchor_drift_r0,
-        eps_lift=cfg.eps_lift, dz=dz_new)
-    certs.update(c)
-    L_bar, h_bar, _, w_norm, c = hyp_ops.barycenter_projection(
-        bel_fin.L[None], bel_fin.h[None], z_lin_new[None], w_hyp,
-        weight_floor=cfg.hyp_weight_floor, eps_psd=cfg.eps_psd,
-        eps_lift=cfg.eps_lift, means=z_drift[None])
-    certs.update(c)
-    pose_out = world_pose(Belief(L=L_bar, h=h_bar, anchor=bel_fin.anchor),
-                          cfg.eps_lift)
-    proc_noise, c = noise_ops.process_apply_suffstats(
-        state.process_noise, dpsi_q, dnu_q, cfg)
-    certs.update(c)
-    meas_noise, c = noise_ops.measurement_apply_suffstats(
-        state.meas_noise, torch.stack([dpsi_gyro, dpsi_accel, dpsi_lidar]),
-        torch.ones((3,), dtype=dt, device=ref.device), cfg)
-    certs.update(c)
-    Sigma_next, _ = spd_inverse_lifted(bel_fin.L[None], cfg.eps_lift)
-    Sigma_next = 0.5 * (Sigma_next + Sigma_next.transpose(-1, -2))
-    mu_next = torch.einsum("kij,kj->ki", Sigma_next, bel_fin.h[None])
-    pose_prev7_next = se3.pose7_plus(bel_fin.anchor, mu_next[0, IDX_POSE])
+    # ---- steps 9-15 (hypothesis 0) + IW apply --------------------------------
+    if cfg.belief_kernel:
+        # K2: the scalar tail off one factorization. cond feeds a cert and
+        # the trust alpha; it is computed outside on the untempered evidence.
+        cond_p6 = fusion_ops.pose6_conditioning(
+            L_io + cfg.visual_evidence_weight * L_vis, cfg.eps_psd)
+        (L_fin, h_fin, anchor_fin, z_t, _, pose_out, pnu, ppsi, mnu, mpsi,
+         tail_certs, mu_next0, Sigma_next0, pose_prev7_next, R_prev_next,
+         R_zt) = belief_kernels.scalar_tail(
+            cfg, bel_pred.L, bel_pred.h, bel_pred.anchor, mu_pred, L_io, h_io,
+            z_lin, L_vis, h_vis_rel, dz_odom[IDX_POSE],
+            state.process_noise.nu, state.process_noise.psi,
+            state.meas_noise.nu, state.meas_noise.psi, dpsi_gyro, dpsi_accel,
+            dpsi_lidar, pre_int["ess"], certs["ot.ess"],
+            certs["ot.total_cost"], pe_certs[_PE_GRAV_PROJ], cond_p6)
+        certs["fusion.cond_pose6"] = cond_p6
+        certs["__packed__:tail"] = tail_certs
+        bel_fin = Belief(L=L_fin, h=h_fin, anchor=anchor_fin)
+        mu_next, Sigma_next = mu_next0[None], Sigma_next0[None]
+        w_norm = torch.ones((1,), dtype=dt, device=ref.device)
+        proc_noise = noise_ops.ProcessNoiseIW(nu=pnu, psi=ppsi)
+        meas_noise = noise_ops.MeasurementNoiseIW(nu=mnu, psi=mpsi)
+    else:
+        (bel_fin, z_t, pose_out, w_norm, proc_noise, meas_noise, mu_next,
+         Sigma_next, pose_prev7_next, kc) = _xla_tail(
+            state, cfg, bel_pred, mu_pred, L_io, h_io, z_lin, dz_odom, L_vis,
+            h_vis_rel, dpsi_gyro, dpsi_accel, dpsi_lidar,
+            ess_imu=pre_int["ess"], ot_ess=certs["ot.ess"],
+            ot_cost=certs["ot.total_cost"],
+            grav_proj=certs["imu_grav.psd_projection"])
+        certs.update(kc)
+        R_prev_next = se3.quat_to_R(pose_prev7_next[3:7])
+        R_zt = None
 
     # ---- step 12b: map update at z_t -----------------------------------------
-    batch_t = mb.transform_to_world(batch, bel_rec.anchor,
-                                    eps_lift=cfg.eps_lift)
+    batch_t = mb.transform_to_world(batch, z_t, eps_lift=cfg.eps_lift, R=R_zt)
     rows, c = atlas_ops.compact_fuse(view, batch_t, assoc.responsibilities,
                                      assoc.cand_view_idx, assoc.cand_valid,
                                      seq, cfg)
@@ -582,7 +690,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         belief=Belief(L=bel_fin.L[None], h=bel_fin.h[None],
                       anchor=bel_fin.anchor[None]),
         mu=mu_next, Sigma=Sigma_next, pose_prev7=pose_prev7_next,
-        R_prev=se3.quat_to_R(pose_prev7_next[3:7]), hyp_weights=w_norm,
+        R_prev=R_prev_next, hyp_weights=w_norm,
         process_noise=proc_noise, meas_noise=meas_noise, slabs=sff,
         scan_seq=seq + 1, prev_scan_t=scan.scan_start,
         odom_prev6=scan.odom_pose)
@@ -610,20 +718,29 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
     while T % R != 0:
         R -= 1
     poses, stamps, packed = [], [], []
-    keys = None
+    scalar_keys = packed_keys = names = None
     for c0 in range(0, T, R):
         state, ctx = _chunk_begin(state, cfg, gamma_power=R)
         for i in range(c0, c0 + R):
             state, ctx, out = _scan_core(state, ctx, _scan_at(scans, i), cfg)
-            if keys is None:
-                keys = sorted(out.certs)
+            if names is None:
+                # Kernel cert vectors (``__packed__:*``) are spliced as they
+                # are and named from their registered groups.
+                scalar_keys = sorted(k for k in out.certs
+                                     if not k.startswith("__packed__:"))
+                packed_keys = sorted(k for k in out.certs
+                                     if k.startswith("__packed__:"))
+                names = scalar_keys + [
+                    n for k in packed_keys
+                    for n in belief_kernels.PACKED_CERT_GROUPS[k]]
             poses.append(out.pose)
             stamps.append(out.stamp)
-            packed.append(torch.stack([
+            packed.append(torch.cat([torch.stack([
                 torch.as_tensor(out.certs[k], dtype=cfg.torch_dtype,
-                                device=dev).reshape(()) for k in keys]))
+                                device=dev).reshape(()) for k in scalar_keys])]
+                + [out.certs[k].to(cfg.torch_dtype) for k in packed_keys]))
         state = _chunk_end(state, ctx, cfg)
     certs_tc = torch.stack(packed)
-    certs = {k: certs_tc[:, j] for j, k in enumerate(keys)}
+    certs = {k: certs_tc[:, j] for j, k in enumerate(names)}
     return flush_slabs(state, dev), ScanOutput(
         pose=torch.stack(poses), stamp=torch.stack(stamps), certs=certs)

@@ -1,37 +1,42 @@
 """Where the time of the port's replay goes, on one CUDA device.
 
-  python3 -m fl_slam_tpu_torch.profile_replay
+  python3 -m fl_slam_tpu_torch.profile_replay [--belief-kernel on|off|both]
 
-Replays ``GCConfig.tpu(belief_kernel=False)`` over 20 synthetic drifting-
-odometry scans (seed 3) after a warm-up replay, and prints one JSON line:
-the host-clock ms/scan of 3 unprofiled replays, then, from one replay
-under ``torch.profiler`` (CUDA activity only), the device kernel time per
-scan, the kernel launches per scan, the device busy share against the
-unprofiled wall time, and the kernels that take the most device time.
+Replays ``GCConfig.tpu()`` (``on``, the default: the belief kernels K1/K2
+carry the belief chain), ``GCConfig.tpu(belief_kernel=False)`` (``off``:
+the chain op by op) or both in one process, over 20 synthetic drifting-
+odometry scans (seed 3) after a warm-up replay, and prints one JSON line per
+configuration: the host-clock ms/scan of 3 unprofiled replays, then, from
+one replay under ``torch.profiler`` (CUDA activity only), the device kernel
+time per scan, the kernel launches per scan, the device busy share against
+the median unprofiled wall time, and the kernels that take the most device
+time, among them each hand-written kernel of the port (device us per
+call).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
 
-
 N_SCANS = 20
 N_REPS = 3
+# The port's hand-written kernels (csrc/), by their device symbol.
+OWN_KERNELS = ("pe_kernel", "tail_kernel", "sinkhorn_kernel", "moment_partial",
+               "moment_combine", "exchange_kernel")
 
 
-def main() -> None:
+def profile(belief_kernel: bool, card: str) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
     from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
     from fl_slam_tpu_torch.pipeline import init_state, replay
 
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_replay: no CUDA device")
-    cfg = GCConfig.tpu(belief_kernel=False)
+    cfg = GCConfig.tpu(belief_kernel=belief_kernel)
     ds = simulate(cfg, n_scans=N_SCANS, seed=3, odom_drift_vel_scale=1.03,
                   odom_drift_yaw_rate=0.01)
     scans = to_scan_inputs(ds, cfg)
@@ -53,7 +58,7 @@ def main() -> None:
 
     st = fresh()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         replay(st, scans, cfg)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -61,14 +66,14 @@ def main() -> None:
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    own = [e for e in kernels
+           if any(f"::{k}<" in e.key for k in OWN_KERNELS)]
     wall = sorted(walls)[len(walls) // 2]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(json.dumps({
-        "card": card, "config": "GCConfig.tpu(belief_kernel=False)",
-        "scans": N_SCANS, "wall_ms_per_scan": walls,
+    label = ("GCConfig.tpu()" if belief_kernel
+             else "GCConfig.tpu(belief_kernel=False)")
+    return {
+        "card": card, "config": label, "scans": N_SCANS,
+        "wall_ms_per_scan": walls,
         "device_kernel_ms_per_scan": dev_ms / N_SCANS,
         "kernel_launches_per_scan": n_launch / N_SCANS,
         "device_busy_share": dev_ms / N_SCANS / wall,
@@ -76,7 +81,29 @@ def main() -> None:
                          "ms_per_scan": e.self_device_time_total / 1e3
                          / N_SCANS,
                          "calls_per_scan": e.count / N_SCANS}
-                        for e in top]}))
+                        for e in top],
+        "port_kernels": [{"name": e.key.split("::", 1)[1].split("(")[0],
+                          "us_per_call": e.self_device_time_total / e.count,
+                          "calls_per_scan": e.count / N_SCANS}
+                         for e in own]}
+
+
+def main() -> None:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--belief-kernel", choices=("on", "off", "both"),
+                    default="on")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_replay: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    modes = {"on": (True,), "off": (False,), "both": (True, False)}
+    for bk in modes[args.belief_kernel]:
+        print(json.dumps(profile(bk, card)), flush=True)
 
 
 if __name__ == "__main__":

@@ -70,8 +70,8 @@ def test_config_copy_matches_reference(make):
 
 
 @pytest.mark.parametrize("override", [
-    dict(k_hyp=4), dict(belief_kernel=True), dict(view_page=0),
-    dict(camera_insert_novelty_floor=0.1), dict(odom_pose_relative=True),
+    dict(k_hyp=4), dict(surfel_moment_kernel=False), dict(view_page=0),
+    dict(camera_insert_novelty_floor=0.1), dict(slab_dma_kernel=False),
     dict(select_kernel=True), dict(insert_page_dense=True),
     dict(sinkhorn_kernel=False)])
 def test_require_slice_raises_for_unported_switches(override):
@@ -79,6 +79,16 @@ def test_require_slice_raises_for_unported_switches(override):
     tcfg.require_slice(tcfg.GCConfig.tpu(belief_kernel=False))
     with pytest.raises(NotImplementedError, match="slice"):
         tcfg.require_slice(tcfg.GCConfig.small(**{**SLICE, **override}))
+
+
+@pytest.mark.parametrize("override", [
+    dict(), dict(belief_kernel=False), dict(odom_pose_relative=True),
+    dict(belief_kernel=False, odom_pose_relative=True)])
+def test_require_slice_accepts_the_production_config(override):
+    """``GCConfig.tpu()`` itself runs: the belief kernels and the relative
+    odometry factor are ported, on both belief branches."""
+    cfg = tcfg.GCConfig.tpu(**override)
+    assert tcfg.require_slice(cfg) is cfg
 
 
 def test_validate_matches_reference():

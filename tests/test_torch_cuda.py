@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K3 Sinkhorn, K4 moment segment-sum, K5 slab
-exchange) against their plain versions, in f32 and f64, on a CUDA device.
+"""The port's CUDA kernels (K1 predict + evidence, K2 scalar tail, K3
+Sinkhorn, K4 moment segment-sum, K5 slab exchange) against their plain
+versions, in f32 and f64, on a CUDA device.
 
 Every test skips without one. The file imports no JAX, so it also runs on
 the card, where JAX is absent:
@@ -12,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
+from fl_slam_tpu_torch.config import GCConfig
+from fl_slam_tpu_torch.core import se3
+from fl_slam_tpu_torch.ops import assoc_kernels, belief_kernels, surfel_kernels
+from fl_slam_tpu_torch.ops import noise as noise_ops
 from fl_slam_tpu_torch.structures import atlas_kernels
 
 UA = VB = 0.5 / 0.6
@@ -97,3 +101,112 @@ def test_exchange_kernel_matches_plain(cuda, dtype, refresh):
         *[a.to(cuda) for a in args], flag.to(cuda))
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y)
+
+
+def _spd(g, n, s=1.0):
+    A = torch.randn((n, n), generator=g, dtype=torch.float64)
+    return A @ A.T * s + torch.eye(n, dtype=torch.float64)
+
+
+def _vec(g, n, s=1.0):
+    return torch.randn((n,), generator=g, dtype=torch.float64) * s
+
+
+def _unit_quat(g):
+    q = torch.randn((4,), generator=g, dtype=torch.float64)
+    return q / q.norm()
+
+
+def _pe_operands(seed, first_scan):
+    """K1's 12 operands: SPD information / covariances, a unit anchor, and
+    the packed vector with the path's magnitudes."""
+    g = torch.Generator().manual_seed(seed)
+    L_prev = _spd(g, 22, 10.0)
+    sigma = torch.linalg.inv(L_prev + 1e-9 * torch.eye(22,
+                                                        dtype=torch.float64))
+    pose_prev = _vec(g, 6, 0.1)
+    pk = torch.cat([
+        torch.tensor([0.1, 100.0, 0.1, 0.005, 0.95, 0.05],
+                     dtype=torch.float64),
+        pose_prev, _vec(g, 3, 0.01), _vec(g, 3, 0.01), _vec(g, 3, 0.01),
+        _vec(g, 3, 0.1), _vec(g, 3, 0.1) + torch.tensor([0, 0, 9.8]),
+        _vec(g, 3, 0.5), _vec(g, 3, 0.1), _vec(g, 6, 0.1),
+        torch.tensor([0.05, 0.02, 0.99], dtype=torch.float64) / 0.9925,
+        _vec(g, 3, 0.1) + torch.tensor([0, 0, 9.8]),
+        torch.tensor([0.999], dtype=torch.float64), _vec(g, 6, 0.05),
+        torch.tensor([first_scan], dtype=torch.float64)])
+    return [L_prev, _vec(g, 22), torch.cat([_vec(g, 3), _unit_quat(g)]),
+            _vec(g, 22, 0.01), 0.5 * (sigma + sigma.T),
+            se3.so3_exp(pose_prev[3:6]), _spd(g, 22, 0.01),
+            _spd(g, 3, 0.001), _spd(g, 3, 0.01), _spd(g, 6, 0.01),
+            _spd(g, 3, 0.1), pk]
+
+
+def _tail_operands(seed):
+    """K2's 18 operands (the last is [ess_pre, ot_ess, ot_cost, grav_proj,
+    cond_p6])."""
+    g = torch.Generator().manual_seed(seed)
+    cfg = GCConfig.small()
+    pn = noise_ops.init_process_noise(cfg, "cpu")
+    mn = noise_ops.init_measurement_noise(cfg, "cpu")
+    return [_spd(g, 22, 10.0), _vec(g, 22),
+            torch.cat([_vec(g, 3), _unit_quat(g)]), _vec(g, 22, 0.01),
+            _spd(g, 22, 2.0), _vec(g, 22), _vec(g, 22, 0.01), _spd(g, 22),
+            _vec(g, 22), _vec(g, 6, 0.01), pn.nu, pn.psi, mn.nu, mn.psi,
+            _spd(g, 3, 0.01), _spd(g, 3, 0.01), _spd(g, 3, 0.01),
+            torch.tensor([100.0, 50.0, 10.0, 0.001, 5.0],
+                         dtype=torch.float64)]
+
+
+def _assert_outputs_close(got, want, tol):
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.cpu().double()
+        b = b.double()
+        assert torch.isfinite(a).all(), i
+        err = (a - b).abs().max() / b.abs().max().clamp(min=1e-30)
+        assert err <= tol, (i, float(err))
+
+
+# f32: the JAX package's own device-vs-interpret gates for these kernels
+# (tests/test_tpu_kernels.py: 1e-3 for K1, 5e-4 for K2); f64: rounding of
+# reordered sums and fused multiply-adds through the 22x22 solves.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("branch,first_scan", [("absolute", 0.0),
+                                               ("relative", 0.0),
+                                               ("relative", 1.0)])
+def test_predict_evidence_kernel_matches_plain(cuda, dtype, tol, branch,
+                                               first_scan):
+    cfg = GCConfig.tpu(odom_pose_relative=branch == "relative",
+                       odom_pose_mix=0.5, odom_pose_rot_scale=0.3)
+    ops = [t.to(dtype) for t in _pe_operands(7, first_scan)]
+    want = belief_kernels.predict_evidence_packed(cfg, *ops)
+    ops_d = [t.to(cuda) for t in ops]
+    before = belief_kernels.launches["predict_evidence"]
+    a = belief_kernels.predict_evidence_packed(cfg, *ops_d)
+    b = belief_kernels.predict_evidence_packed(cfg, *ops_d)
+    assert belief_kernels.launches["predict_evidence"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _assert_outputs_close(a, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4),
+                                       (torch.float64, 1e-9)])
+def test_scalar_tail_kernel_matches_plain(cuda, dtype, tol):
+    cfg = GCConfig.tpu()
+    ops = [t.to(dtype) for t in _tail_operands(11)]
+    want = belief_kernels.scalar_tail_packed(cfg, *ops)
+    ops_d = [t.to(cuda) for t in ops]
+    before = belief_kernels.launches["scalar_tail"]
+    a = belief_kernels.scalar_tail_packed(cfg, *ops_d)
+    b = belief_kernels.scalar_tail_packed(cfg, *ops_d)
+    assert belief_kernels.launches["scalar_tail"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _assert_outputs_close(a, want, tol)
+
+
+def test_belief_kernels_refuse_mixed_devices(cuda):
+    ops = [t.float() for t in _tail_operands(1)]
+    with pytest.raises(ValueError, match="operand 17"):
+        belief_kernels.scalar_tail_packed(
+            GCConfig.tpu(), *[t.to(cuda) for t in ops[:17]], ops[17])

@@ -1,15 +1,26 @@
 """The whole slice: the port's chunked ``replay`` against the JAX ``replay``
 on the same synthetic data and the same initial state (small slice config,
-2 chunks of 5 scans), the port-only drifting-odometry gate, determinism,
-the host-layer copies, and the port's isolation from JAX.
+2 chunks of 5 scans), on both belief branches, the port-only
+drifting-odometry gate, determinism, the host-layer copies, and the port's
+isolation from JAX.
+
+Belief branches: ``belief_kernel=False`` holds the port's op-by-op branch
+against the JAX XLA branch. ``belief_kernel=True`` holds the port's K1/K2
+branch (their plain versions on the CPU) against the JAX kernel branch run
+in interpret mode (``belief_kernels.FORCE_INTERPRET``, restored after).
+For the f64 kernel-branch comparisons the JAX kernels' polynomial atan
+(``belief_kernels._atanf``, ~1e-7 relative) is swapped for ``jnp.arctan``,
+as the port computes a true atan2; the f32 comparison keeps it.
 
 Tolerances: f64 poses 1e-8 absolute, and every cert on every scan and the
 final state 1e-9 relative + 1e-9 absolute (the scan chain compounds
-reordered f64 sums over 10 scans; measured ~1e-13 on poses). f32 poses 1e-3, as the JAX suite holds
-its kernel path against its XLA path (tests/test_pipeline_e2e.py): f32
-rounding differences compound through the soft association.
+reordered f64 sums over 10 scans; measured ~1e-13 on poses on the op-by-op
+branch, ~1e-11 on the kernel branch). f32 poses 1e-3, as the JAX suite
+holds its kernel path against its XLA path (tests/test_pipeline_e2e.py):
+f32 rounding differences compound through the soft association.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -26,9 +37,11 @@ from fl_slam_tpu import pipeline as jp
 from fl_slam_tpu.config import GCConfig as JCfg
 from fl_slam_tpu.eval import metrics as jmetrics
 from fl_slam_tpu.io import synthetic as jsyn
+from fl_slam_tpu.ops import belief_kernels as jbk
 from fl_slam_tpu_torch import convert
 from fl_slam_tpu_torch import pipeline as tp
 from fl_slam_tpu_torch.config import GCConfig as TCfg
+from fl_slam_tpu_torch.config import require_slice
 from fl_slam_tpu_torch.eval import metrics as tmetrics
 from fl_slam_tpu_torch.io import synthetic as tsyn
 
@@ -36,19 +49,43 @@ SLICE = dict(k_hyp=1, view_page=64, view_refresh_every=5, merge_at_chunk=True,
              approx_topk=True, select_bf16=True, surfel_moment_kernel=True,
              fuse_moment_kernel=True, belief_kernel=False,
              camera_fuse_geom_scale=0.0)
+KERNEL = dict(SLICE, belief_kernel=True)
+RELATIVE = dict(odom_pose_relative=True, odom_pose_mix=0.5,
+                odom_pose_rot_scale=0.3)
 DRIFT = dict(seed=3, odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _both_replays(dtype, n_scans):
-    jc, tc = JCfg.small(dtype=dtype, **SLICE), TCfg.small(dtype=dtype,
-                                                         **SLICE)
-    ds = jsyn.simulate(jc, n_scans=n_scans, **DRIFT)
+@contextlib.contextmanager
+def _jax_kernel_branch(true_atan: bool):
+    """Drive the JAX kernel branch on the CPU (interpret mode)."""
+    atanf = jbk._atanf
+    try:
+        jbk.FORCE_INTERPRET = True
+        if true_atan:
+            jbk._atanf = jnp.arctan
+        jax.clear_caches()
+        yield
+    finally:
+        jbk.FORCE_INTERPRET = False
+        jbk._atanf = atanf
+        jax.clear_caches()
+
+
+def _both_replays(dtype, n_scans, slice_cfg=SLICE, sim=None,
+                  true_atan=False):
+    jc = JCfg.small(dtype=dtype, **slice_cfg)
+    tc = TCfg.small(dtype=dtype, **slice_cfg)
+    ds = jsyn.simulate(jc, n_scans=n_scans, **DRIFT, **(sim or {}))
     js = jp.init_state(jc, anchor0=jnp.asarray(ds.gt_poses[0], jc.jdtype),
                        t0=float(ds.gt_stamps[0]) - 0.1)
     ts = convert.state_from_numpy(jax.tree.map(np.asarray, js), tc,
                                   device="cpu")
-    jf, jo = jp.replay(js, jsyn.to_scan_inputs(ds, jc), jc)
+    branch = (_jax_kernel_branch(true_atan) if slice_cfg["belief_kernel"]
+              else contextlib.nullcontext())
+    with branch:
+        jf, jo = jp.replay(js, jsyn.to_scan_inputs(ds, jc), jc)
+        jax.block_until_ready(jo.pose)
     tf, to = tp.replay(ts, convert.scans_from_numpy(ds.scans, tc,
                                                     device="cpu"), tc,
                        device="cpu")
@@ -60,28 +97,28 @@ def f64_replays():
     return _both_replays("float64", 10)
 
 
-def test_replay_f64_poses_match_reference(f64_replays):
-    (_, jo), (_, to) = f64_replays
+def _assert_poses_match(replays):
+    (_, jo), (_, to) = replays
     np.testing.assert_allclose(to.pose.numpy(), np.asarray(jo.pose),
                                rtol=0, atol=1e-8)
     np.testing.assert_allclose(to.stamp.numpy(), np.asarray(jo.stamp),
                                rtol=0, atol=0)
 
 
-def test_replay_f64_certs_match_reference(f64_replays):
-    (_, jo), (_, to) = f64_replays
+def _assert_certs_match(replays, rtol=1e-9):
+    (_, jo), (_, to) = replays
     assert set(to.certs) == set(jo.certs), sorted(set(to.certs)
                                                   ^ set(jo.certs))
     bad = []
     for k in sorted(jo.certs):
         want, got = np.asarray(jo.certs[k]), to.certs[k].numpy()
-        if not np.allclose(got, want, rtol=1e-9, atol=1e-9):
-            bad.append((k, got, want))
+        if not np.allclose(got, want, rtol=rtol, atol=1e-9):
+            bad.append((k, np.abs(got - want).max(), np.abs(want).max()))
     assert not bad, bad[:5]
 
 
-def test_replay_f64_final_state_matches_reference(f64_replays):
-    (jf, _), (tf, _) = f64_replays
+def _assert_final_state_matches(replays, rtol=1e-9):
+    (jf, _), (tf, _) = replays
     got = convert.state_to_numpy(tf)
     for name in jp.PipelineState._fields:
         for g, w in zip(jax.tree.leaves(getattr(got, name)),
@@ -90,8 +127,78 @@ def test_replay_f64_final_state_matches_reference(f64_replays):
             if w.dtype.kind in "biu":
                 np.testing.assert_array_equal(g, w, err_msg=name)
             else:
-                np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9,
+                np.testing.assert_allclose(g, w, rtol=rtol, atol=1e-9,
                                            err_msg=name)
+
+
+def test_replay_f64_poses_match_reference(f64_replays):
+    _assert_poses_match(f64_replays)
+
+
+def test_replay_f64_certs_match_reference(f64_replays):
+    _assert_certs_match(f64_replays)
+
+
+def test_replay_f64_final_state_matches_reference(f64_replays):
+    _assert_final_state_matches(f64_replays)
+
+
+@pytest.fixture(scope="module")
+def f64_kernel_replays():
+    return _both_replays("float64", 10, KERNEL, true_atan=True)
+
+
+def test_kernel_replay_f64_poses_match_reference(f64_kernel_replays):
+    _assert_poses_match(f64_kernel_replays)
+
+
+def test_kernel_replay_f64_certs_match_reference(f64_kernel_replays):
+    """Same cert key set as the JAX kernel branch (which equals its XLA
+    branch's, tests/test_pipeline_e2e.py) and the same values."""
+    _assert_certs_match(f64_kernel_replays)
+    (_, jo), _ = f64_kernel_replays
+    assert not any(k.startswith("__packed__") for k in jo.certs)
+
+
+def test_kernel_replay_f64_final_state_matches_reference(f64_kernel_replays):
+    _assert_final_state_matches(f64_kernel_replays)
+
+
+def test_kernel_replay_relative_odom_matches_reference():
+    """The relative/mixed odometry factor on K1's relative branch, at the
+    large yaw increments the JAX gate uses to expose a missing V(omega).
+    Certs and state at 1e-7 relative: at these turn rates the two f64
+    chains part in the last bits (poses ~6e-12 apart), and the visual
+    evidence sums of thousands of rows carry that to ~4e-9 relative."""
+    replays = _both_replays("float64", 10, dict(KERNEL, **RELATIVE),
+                            sim=dict(turn_rate=0.8, speed=1.5),
+                            true_atan=True)
+    _assert_poses_match(replays)
+    _assert_certs_match(replays, rtol=1e-7)
+    _assert_final_state_matches(replays, rtol=1e-7)
+
+
+def test_kernel_replay_f32_matches_reference():
+    (_, jo), (_, to) = _both_replays("float32", 10, KERNEL)
+    assert set(to.certs) == set(jo.certs)
+    assert np.isfinite(to.pose.numpy()).all()
+    assert np.abs(to.pose.numpy() - np.asarray(jo.pose)).max() < 1e-3
+
+
+def test_relative_odom_branches_agree():
+    """Port only: the op-by-op branch runs the relative odometry factor too,
+    and the two branches give the same f64 trajectory."""
+    cfg = TCfg.small(**dict(SLICE, **RELATIVE))
+    ds = tsyn.simulate(cfg, n_scans=10, **DRIFT, turn_rate=0.8, speed=1.5)
+    poses = []
+    for kernel in (False, True):
+        c = cfg.replace(belief_kernel=kernel)
+        st = tp.init_state(c, anchor0=ds.gt_poses[0],
+                           t0=float(ds.gt_stamps[0]) - 0.1, device="cpu")
+        _, out = tp.replay(st, tsyn.to_scan_inputs(ds, c, device="cpu"), c,
+                           device="cpu")
+        poses.append(out.pose.numpy())
+    np.testing.assert_allclose(poses[1], poses[0], rtol=0, atol=1e-9)
 
 
 def test_replay_f32_matches_reference():
@@ -125,11 +232,7 @@ def test_process_scan_matches_reference():
                                atol=1e-9)
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_drifting_odometry_gate_and_determinism(dtype):
-    """Port only: SLAM beats raw drifting odometry on both ATE metrics over
-    50 scans, and two runs give bit-identical poses."""
-    cfg = TCfg.small(dtype=dtype, **SLICE)
+def _drifting_gate(cfg):
     ds = tsyn.simulate(cfg, n_scans=50, **DRIFT)
     poses = []
     for _ in range(2):
@@ -143,6 +246,19 @@ def test_drifting_odometry_gate_and_determinism(dtype):
     m_odom = tmetrics.ate(ds.scans["odom_pose"], ds.gt_poses, align="initial")
     assert m["trans"]["rmse"] < m_odom["trans"]["rmse"], (m, m_odom)
     assert m["rot_deg"]["rmse"] < m_odom["rot_deg"]["rmse"], (m, m_odom)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_drifting_odometry_gate_and_determinism(dtype):
+    """Port only: SLAM beats raw drifting odometry on both ATE metrics over
+    50 scans, and two runs give bit-identical poses."""
+    _drifting_gate(TCfg.small(dtype=dtype, **SLICE))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_branch_drifting_gate_and_determinism(dtype):
+    """The same gate on the K1/K2 branch (``belief_kernel=True``)."""
+    _drifting_gate(TCfg.small(dtype=dtype, **KERNEL))
 
 
 def test_host_layer_copies_match_reference():
@@ -181,8 +297,11 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
                  lambda: tsyn.to_scan_inputs(ds, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tp.init_state(TCfg.tpu(), device="cpu")
+    with pytest.raises(NotImplementedError, match="bank slice"):
+        tp.init_state(TCfg.tpu(k_hyp=4), device="cpu")
+    for cfg in (TCfg.tpu(), TCfg.tpu(odom_pose_relative=True),
+                TCfg.tpu(belief_kernel=False)):
+        assert require_slice(cfg) is cfg
 
 
 def test_port_imports_neither_jax_nor_reference_package():
