@@ -22,9 +22,21 @@ Phases (any failure raises and the script exits non-zero without a result):
      before it) and the host syncs that
      ``torch.cuda.set_sync_debug_mode("warn")`` reports inside the replay;
   5. replay 20 scans of ``GCConfig.tpu()`` twice and require identical
-     poses.
-Then it prints the ``kernels`` JSON line (launches from the
-``GCConfig.tpu()`` replay) and, last, the ``ok`` line.
+     poses;
+  6. the instance-batched replay (``parallel.replicas.batched_replay``) of
+     ``GCConfig.tpu()`` over B = 8 instances of 100 drifting-odometry scans
+     (seeds 3-10), after a one-chunk warm-up: aggregate scan-instances/s,
+     ms per batched scan, peak memory and the measured peak factor of the
+     memory envelope, each instance's ATE against its odometry (each must
+     beat it), each kernel's launch count (one per batched call, not B),
+     host syncs, the vmap fallback warnings; instance 0 against the
+     single-instance ``GCConfig.tpu(insert_page_dense=True)`` replay of the
+     same data; then two 20-scan batched reruns with identical poses.
+Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched and
+K7), K6 and K10 against their plain versions.
+Then it prints the ``kernels`` JSON line (launches of the one-instance
+kernels from the ``GCConfig.tpu()`` replay of phase 4, of the batched ones
+from phase 6) and, last, the ``ok`` line.
 The script imports nothing of JAX and nothing of ``fl_slam_tpu``.
 """
 
@@ -40,6 +52,7 @@ import warnings
 N_SCANS = 100
 N_RERUN = 20
 SEED = 3
+N_INST = 8                       # instances per card (the reference's B)
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 # K1/K2 tolerances (max |kernel - plain| over max |plain|, per output). f32:
@@ -49,6 +62,7 @@ H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 BELIEF_TOL = {"predict_evidence": {"float32": 1e-3, "float64": 1e-9},
               "scalar_tail": {"float32": 5e-4, "float64": 1e-9}}
 _SYNC_WARNING = "called a synchronizing CUDA operation"
+_VMAP_FALLBACK = "There is a performance drop because we have not yet"
 
 
 def _card_line() -> str:
@@ -136,7 +150,7 @@ def check_kernels() -> list:
     ops = cfg.k_sinkhorn * K * N * 11
     bound, by = _bound_ms(nb, ops)
     rows.append(dict(
-        name="sinkhorn_piT", route="cuda",
+        name="sinkhorn_piT", launch_key="sinkhorn_piT", route="cuda",
         source="fl_slam_tpu_torch/csrc/sinkhorn.cu",
         replaces="fl_slam_tpu/ops/assoc_kernels.py:77",
         site="association", max_abs_err=err, tolerance=tol,
@@ -170,7 +184,8 @@ def check_kernels() -> list:
         payT = pay.T.contiguous()
         bound, by = _bound_ms((F * Np + Np + F * Cn) * 4, F * Np)
         rows.append(dict(
-            name=f"moment_segment_sum[{site}]", route="cuda",
+            name=f"moment_segment_sum[{site}]",
+            launch_key=f"moment_segment_sum[{site}]", route="cuda",
             source="fl_slam_tpu_torch/csrc/moment.cu",
             replaces="fl_slam_tpu/ops/surfel_kernels.py:89",
             site=site, max_abs_err=err, tolerance=tol,
@@ -211,7 +226,8 @@ def check_kernels() -> list:
         nb = 4 * S * (cf + 1) * M * 4 if r else 4
         bound, by = _bound_ms(nb, 0)
         rows.append(dict(
-            name=f"conditional_slab_exchange_ff[refresh={r}]", route="cuda",
+            name=f"conditional_slab_exchange_ff[refresh={r}]",
+            launch_key="conditional_slab_exchange_ff", route="cuda",
             source="fl_slam_tpu_torch/csrc/slab_exchange.cu",
             replaces="fl_slam_tpu/structures/atlas_kernels.py:353",
             site=f"refresh={r}", max_abs_err=err, tolerance=0.0,
@@ -223,6 +239,322 @@ def check_kernels() -> list:
             bound_ms=bound, bound_by=by, library_ms=None,
             shape=f"pool ({P}, {cf}, {M}) f32, S={S}"))
         del ins_k, ins_p
+    return rows
+
+
+def _rel_err(got, want) -> float:
+    return max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def check_batched_kernels() -> list:
+    """Phase 3, the batched launches at B = N_INST (one kernel for all
+    instances under ``torch.func.vmap``: K3/K4 batched, K7 for K1/K2 and the
+    exchange), K6 and K10, each against its plain version per instance; each
+    batched instance must also equal the one-instance launch exactly."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    from fl_slam_tpu_torch.structures import atlas_kernels as ak
+    from fl_slam_tpu_torch.structures.atlas import _cf_padded
+
+    vmap = torch.func.vmap
+    cfg = GCConfig.tpu()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    B = N_INST
+    rows = []
+
+    def same_as_single(got, one, what):
+        if not torch.equal(got, one):
+            raise AssertionError(f"{what}: a batched instance differs from "
+                                 "the one-instance launch")
+
+    # K3 batched: per-instance costs and source masses.
+    K, N = cfg.k_assoc, cfg.n_meas
+    C = torch.rand((B, N, K), generator=g, device=dev) * 2.0
+    C = torch.where(torch.rand((B, N, K), generator=g, device=dev) < 0.05,
+                    torch.full_like(C, 1e12), C)
+    logKT = (-C / cfg.ot_epsilon).transpose(1, 2).contiguous()
+    a = torch.rand((B, N), generator=g, device=dev)
+    a = torch.where(torch.rand((B, N), generator=g, device=dev) < 0.2,
+                    torch.zeros_like(a), a)
+    a = a / a.sum(1, keepdim=True)
+    log_a = torch.where(a > 0, torch.log(a.clamp(min=1e-300)),
+                        torch.full_like(a, float("-inf")))
+    eps = cfg.ot_epsilon
+    kw = dict(n_iter=cfg.k_sinkhorn, ua=cfg.ot_tau_a / (cfg.ot_tau_a + eps),
+              vb=cfg.ot_tau_b / (cfg.ot_tau_b + eps),
+              log_b=-math.log(float(K)))
+
+    def k3():
+        return vmap(lambda x, y: assoc_kernels.sinkhorn_piT(x, y, **kw))(
+            logKT, log_a)
+
+    def k3_plain():
+        return torch.stack([assoc_kernels.sinkhorn_piT_plain(
+            logKT[b], log_a[b], **kw) for b in range(B)])
+
+    out_k, out_p = k3(), k3_plain()
+    same_as_single(out_k[B - 1], assoc_kernels.sinkhorn_piT(
+        logKT[B - 1], log_a[B - 1], **kw), "K3")
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    tol = 1e-4 * out_p.abs().max().item() + 1e-7
+    if not err <= tol:
+        raise AssertionError(f"K3 batched mismatch {err} > {tol}")
+    bound, by = _bound_ms(B * (2 * K * N + N) * 4,
+                          B * cfg.k_sinkhorn * K * N * 11)
+    rows.append(dict(
+        name="sinkhorn_piT[batched]", launch_key="sinkhorn_piT[batched]",
+        route="cuda", source="fl_slam_tpu_torch/csrc/sinkhorn.cu",
+        replaces="fl_slam_tpu/ops/assoc_kernels.py:77", site=f"B={B}",
+        max_abs_err=err, tolerance=tol, ms=_time_ms(k3),
+        device_ms=_device_ms(k3), plain_ms=_time_ms(k3_plain, reps=3),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"logKT ({B}, {K}, {N}) f32, {cfg.k_sinkhorn} iterations"))
+    del C, logKT, a, log_a, out_k, out_p
+
+    # K4 batched at both call sites, skewed ids per instance.
+    n_cells = cfg.surfel_cells_1 * cfg.surfel_cells_2 * cfg.surfel_cells_z
+    V = cfg.n_active_tiles * cfg.m_tile_view
+    cf = _cf_padded(cfg.vmf_n_lobes)
+    for site, F, Np, Cn in (("surfels", 11, cfg.n_points, n_cells),
+                            ("fuse", cf, cfg.n_meas * cfg.k_assoc, V)):
+        pay = torch.randn((B, F, Np), generator=g, device=dev)
+        u = torch.rand((B, Np), generator=g, device=dev)
+        cell = (u ** 3 * Cn).long().clamp(max=Cn - 1)
+        cell = torch.where(torch.rand((B, Np), generator=g, device=dev) < 0.2,
+                           torch.zeros_like(cell), cell)
+
+        def k4():
+            return vmap(lambda p, c: surfel_kernels.moment_segment_sum(
+                p, c, Cn, site=site))(pay, cell)
+
+        def k4_plain():
+            return torch.stack([surfel_kernels.moment_segment_sum_plain(
+                pay[b], cell[b], Cn) for b in range(B)])
+
+        out_k, out_p = k4(), k4_plain()
+        same_as_single(out_k[1], surfel_kernels.moment_segment_sum(
+            pay[1], cell[1], Cn, site=site), f"K4 {site}")
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        tol = 1e-5 * out_p.abs().max().item() + 1e-6
+        if not err <= tol:
+            raise AssertionError(f"K4 batched ({site}) mismatch {err} > {tol}")
+        zeros = torch.zeros((B * Cn, F), device=dev)
+        flat_ids = (cell + Cn * torch.arange(B, device=dev)[:, None]
+                    ).reshape(-1)
+        payT = pay.transpose(1, 2).reshape(B * Np, F).contiguous()
+        bound, by = _bound_ms(B * (F * Np + Np + F * Cn) * 4, B * F * Np)
+        rows.append(dict(
+            name=f"moment_segment_sum[{site},batched]",
+            launch_key=f"moment_segment_sum[{site},batched]", route="cuda",
+            source="fl_slam_tpu_torch/csrc/moment.cu",
+            replaces="fl_slam_tpu/ops/surfel_kernels.py:89",
+            site=f"{site}, B={B}", max_abs_err=err, tolerance=tol,
+            ms=_time_ms(k4), device_ms=_device_ms(k4),
+            plain_ms=_time_ms(k4_plain, reps=3), bound_ms=bound,
+            bound_by=by,
+            library_ms=_time_ms(lambda: zeros.clone().index_add_(
+                0, flat_ids, payT)),
+            shape=f"payload ({B}, {F}, {Np}) f32 into {Cn} cells"))
+        del pay, cell, out_k, out_p, zeros, payT
+
+    # K7 (batched K5) and K10: pools (B, P, CF, M), per-instance slot sets
+    # and flags, some clear.
+    P, M, S = cfg.n_tiles_pool, cfg.m_tile, cfg.n_active_tiles
+    flags = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1][:B], device=dev,
+                         dtype=torch.int32)
+    n_set = int(flags.sum().item())
+    old = torch.stack([torch.randperm(P, generator=g, device=dev)[:S]
+                       for _ in range(B)]).to(torch.int32)
+    new = torch.stack([torch.randperm(P, generator=g, device=dev)[:S]
+                       for _ in range(B)]).to(torch.int32)
+    new[:, 0] = old[:, 1]                         # a slot in both sets
+    for row_major in (False, True):
+        name = ("conditional_slab_exchange" if row_major
+                else "conditional_slab_exchange_ff")
+        fn = (ak.conditional_slab_exchange if row_major
+              else ak.conditional_slab_exchange_ff)
+        plain = (ak.conditional_slab_exchange_plain if row_major
+                 else ak.conditional_slab_exchange_ff_plain)
+        slab = (B, S, cf, M) if row_major else (B, cf, S * M)
+        base = [torch.randn((B, P, cf, M), generator=g, device=dev),
+                torch.randint(-1, 1 << 20, (B, P, M), generator=g,
+                              device=dev, dtype=torch.int32),
+                torch.randn(slab, generator=g, device=dev),
+                torch.randint(-1, 1 << 20, (B, S, M) if row_major
+                              else (B, S * M), generator=g, device=dev,
+                              dtype=torch.int32)]
+        ins_k = [t.clone() for t in base]
+        ins_p = [t.clone() for t in base]
+
+        def k7():
+            vmap(fn)(*ins_k, old, new, flags)
+
+        def k7_plain():
+            for b in range(B):
+                plain(*[t[b] for t in ins_p], old[b], new[b], flags[b])
+
+        k7()
+        k7_plain()
+        torch.cuda.synchronize()
+        err = max((x.double() - y.double()).abs().max().item()
+                  for x, y in zip(ins_k, ins_p))
+        if err != 0.0:
+            raise AssertionError(f"{name} batched mismatch {err}")
+        bound, by = _bound_ms(n_set * 4 * S * (cf + 1) * M * 4 + B * 4, 0)
+        rows.append(dict(
+            name=f"{name}[batched]", launch_key=f"{name}[batched]",
+            route="cuda", source="fl_slam_tpu_torch/csrc/slab_exchange.cu",
+            replaces=("fl_slam_tpu/structures/atlas_kernels.py:138"
+                      if row_major else
+                      "fl_slam_tpu/structures/atlas_kernels.py:322"),
+            site=f"B={B}, {n_set} flags set", max_abs_err=err,
+            tolerance=0.0, ms=_time_ms(k7), device_ms=_device_ms(k7),
+            plain_ms=_time_ms(k7_plain, reps=3), bound_ms=bound,
+            bound_by=by, library_ms=None,
+            shape=f"pool ({B}, {P}, {cf}, {M}) f32, S={S}"))
+        if row_major:
+            # K10 for one instance, flag set.
+            one_k = [t[0].clone() for t in base]
+            one_p = [t[0].clone() for t in base]
+            one = torch.ones((), device=dev, dtype=torch.int32)
+            fn(*one_k, old[0], new[0], one)
+            plain(*one_p, old[0], new[0], one)
+            torch.cuda.synchronize()
+            err = max((x.double() - y.double()).abs().max().item()
+                      for x, y in zip(one_k, one_p))
+            if err != 0.0:
+                raise AssertionError(f"{name} mismatch {err}")
+            bound, by = _bound_ms(4 * S * (cf + 1) * M * 4, 0)
+            rows.append(dict(
+                name=name, launch_key=name, route="cuda",
+                source="fl_slam_tpu_torch/csrc/slab_exchange.cu",
+                replaces="fl_slam_tpu/structures/atlas_kernels.py:169",
+                site="refresh=1", max_abs_err=err, tolerance=0.0,
+                ms=_time_ms(lambda: fn(*one_k, old[0], new[0], one)),
+                device_ms=_device_ms(lambda: fn(*one_k, old[0], new[0],
+                                                one)),
+                plain_ms=_time_ms(lambda: plain(*one_p, old[0], new[0], one),
+                                  reps=5),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"pool ({P}, {cf}, {M}) f32, slabs ({S}, {cf}, {M})"))
+            del one_k, one_p
+        del base, ins_k, ins_p
+        torch.cuda.empty_cache()
+
+    # K6: the page gather and write-back of the dense-page insert.
+    Pg = cfg.view_page
+    npg = M // Pg
+    ff = torch.randn((B, cf, S * M), generator=g, device=dev)
+    offs = (torch.arange(S, device=dev) * M
+            + torch.randint(0, npg, (B, S), generator=g, device=dev) * Pg)
+    upd = torch.randn((B, cf, S * Pg), generator=g, device=dev)
+    cols = (offs[:, :, None] + torch.arange(Pg, device=dev)).reshape(B, 1, -1)
+    cols = cols.expand(B, cf, S * Pg)
+    nb = 2 * B * cf * S * Pg * 4 + B * S * 4
+
+    def k6g():
+        return vmap(lambda f, o: ak.page_gather_ff(f, o, Pg))(ff, offs)
+
+    def k6g_plain():
+        return torch.stack([ak.page_gather_ff_plain(ff[b], offs[b], Pg)
+                            for b in range(B)])
+
+    out_k, out_p = k6g(), k6g_plain()
+    same_as_single(out_k[2], ak.page_gather_ff(ff[2], offs[2], Pg), "K6")
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"K6 gather mismatch {err}")
+    bound, by = _bound_ms(nb, 0)
+    rows.append(dict(
+        name="page_gather_ff", launch_key="page_gather_ff", route="cuda",
+        source="fl_slam_tpu_torch/csrc/page_io.cu",
+        replaces="fl_slam_tpu/structures/atlas_kernels.py:504",
+        site=f"B={B}", max_abs_err=err, tolerance=0.0, ms=_time_ms(k6g),
+        device_ms=_device_ms(k6g), plain_ms=_time_ms(k6g_plain),
+        bound_ms=bound, bound_by=by,
+        library_ms=_time_ms(lambda: torch.gather(ff, 2, cols)),
+        shape=f"ff ({B}, {cf}, {S * M}) f32, {S} pages of {Pg}"))
+    ff_k, ff_p, ff_l = ff.clone(), ff.clone(), ff.clone()
+
+    def k6w():
+        vmap(lambda f, o, x: ak.page_writeback_ff(f, o, x, Pg))(ff_k, offs,
+                                                               upd)
+
+    def k6w_plain():
+        for b in range(B):
+            ak.page_writeback_ff_plain(ff_p[b], offs[b], upd[b], Pg)
+
+    k6w()
+    k6w_plain()
+    torch.cuda.synchronize()
+    err = (ff_k - ff_p).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"K6 write-back mismatch {err}")
+    rows.append(dict(
+        name="page_writeback_ff", launch_key="page_writeback_ff",
+        route="cuda", source="fl_slam_tpu_torch/csrc/page_io.cu",
+        replaces="fl_slam_tpu/structures/atlas_kernels.py:542",
+        site=f"B={B}", max_abs_err=err, tolerance=0.0, ms=_time_ms(k6w),
+        device_ms=_device_ms(k6w), plain_ms=_time_ms(k6w_plain),
+        bound_ms=bound, bound_by=by,
+        library_ms=_time_ms(lambda: ff_l.scatter_(2, cols, upd)),
+        shape=f"ff ({B}, {cf}, {S * M}) f32, {S} pages of {Pg}"))
+    del ff, upd, ff_k, ff_p, ff_l, out_k, out_p
+
+    # K7 of K1/K2: seeded operands per instance, f32 and f64.
+    ops = [_seeded_belief_operands(SEED + b) for b in range(B)]
+    fns = {"predict_evidence": (bk.predict_evidence_packed, bk.pe_math_plain,
+                                0),
+           "scalar_tail": (bk.scalar_tail_packed, bk.tail_math_plain, 1)}
+    for name, (kern, plain, k) in fns.items():
+        checks, timed = [], None
+        for dt in (torch.float32, torch.float64):
+            x = [torch.stack(xs).to(dev, dt)
+                 for xs in zip(*[o[k] for o in ops])]
+            got = vmap(lambda *a: kern(cfg, *a))(*x)
+            want = [torch.stack(xs) for xs in zip(*[
+                plain(cfg, *[t[b] for t in x]) for b in range(B)])]
+            one = kern(cfg, *[t[B - 1] for t in x])
+            for a_, b_ in zip(got, one):
+                same_as_single(a_[B - 1], b_, name)
+            torch.cuda.synchronize()
+            rel = _rel_err(got, want)
+            dname = str(dt).replace("torch.", "")
+            tol = BELIEF_TOL[name][dname]
+            checks.append(dict(dtype=dname, max_rel_err=rel, tolerance=tol,
+                               max_abs_err=max((a_ - b_).abs().max().item()
+                                               for a_, b_ in zip(got, want))))
+            if not (all(bool(torch.isfinite(t).all()) for t in got)
+                    and rel <= tol):
+                raise AssertionError(f"{name} batched ({dname}) mismatch: "
+                                     f"relative {rel} > {tol}")
+            if dt == torch.float32:
+                timed = x
+        nb, nops = _belief_work(name, 4)
+        bound, by = _bound_ms(B * nb, B * nops)
+        f32 = checks[0]
+        rows.append(dict(
+            name=f"{name}[batched]", launch_key=f"{name}[batched]",
+            route="cuda", source=f"fl_slam_tpu_torch/csrc/{name}.cu",
+            replaces="fl_slam_tpu/ops/belief_kernels.py:621",
+            site=f"belief chain, B={B}", max_abs_err=f32["max_abs_err"],
+            max_rel_err=f32["max_rel_err"], tolerance=f32["tolerance"],
+            tolerance_is="max |kernel - plain| / max |plain|, per output",
+            ms=_time_ms(lambda: vmap(lambda *a: kern(cfg, *a))(*timed)),
+            device_ms=_device_ms(lambda: vmap(lambda *a: kern(cfg, *a))(
+                *timed)),
+            plain_ms=_time_ms(lambda: [plain(cfg, *[t[b] for t in timed])
+                                       for b in range(B)], reps=2),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=f"{B} x 22x22 belief, f32 (seeded operands)",
+            checks=checks))
     return rows
 
 
@@ -373,7 +705,7 @@ def check_belief_kernels() -> list:
         main = [c for c in checks if c["inputs"] == "captured"
                 and c["dtype"] == "float32"][0]
         rows.append(dict(
-            name=name, route="cuda",
+            name=name, launch_key=name, route="cuda",
             source=f"fl_slam_tpu_torch/csrc/{name}.cu", replaces=replaces,
             site="belief chain", max_abs_err=main["max_abs_err"],
             max_rel_err=main["max_rel_err"], tolerance=main["tolerance"],
@@ -386,27 +718,48 @@ def check_belief_kernels() -> list:
     return rows
 
 
-def _reset_counts():
+def _counters():
     from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
                                        surfel_kernels)
     from fl_slam_tpu_torch.structures import atlas_kernels
-    assoc_kernels.launches = 0
-    atlas_kernels.launches = 0
-    for counts in (surfel_kernels.launches, belief_kernels.launches):
+    return (assoc_kernels.launches, surfel_kernels.launches,
+            belief_kernels.launches, atlas_kernels.launches)
+
+
+# Kernel row name -> (counter dict index, key).
+_COUNT_KEYS = {
+    "predict_evidence": (2, "predict_evidence"),
+    "scalar_tail": (2, "scalar_tail"),
+    "sinkhorn_piT": (0, "sinkhorn_piT"),
+    "moment_segment_sum[surfels]": (1, "surfels"),
+    "moment_segment_sum[fuse]": (1, "fuse"),
+    "conditional_slab_exchange_ff": (3, "exchange_ff"),
+    "predict_evidence[batched]": (2, "predict_evidence_batched"),
+    "scalar_tail[batched]": (2, "scalar_tail_batched"),
+    "sinkhorn_piT[batched]": (0, "sinkhorn_piT_batched"),
+    "moment_segment_sum[surfels,batched]": (1, "surfels_batched"),
+    "moment_segment_sum[fuse,batched]": (1, "fuse_batched"),
+    "conditional_slab_exchange_ff[batched]": (3, "exchange_ff_batched"),
+    "page_gather_ff": (3, "page_gather"),
+    "page_writeback_ff": (3, "page_writeback"),
+    "conditional_slab_exchange": (3, "exchange"),
+    "conditional_slab_exchange[batched]": (3, "exchange_batched"),
+}
+
+_SINGLE_PATH = ("predict_evidence", "scalar_tail", "sinkhorn_piT",
+                "moment_segment_sum[surfels]", "moment_segment_sum[fuse]",
+                "conditional_slab_exchange_ff")
+
+
+def _reset_counts():
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts() -> dict:
-    from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
-                                       surfel_kernels)
-    from fl_slam_tpu_torch.structures import atlas_kernels
-    return {"predict_evidence": belief_kernels.launches["predict_evidence"],
-            "scalar_tail": belief_kernels.launches["scalar_tail"],
-            "sinkhorn_piT": assoc_kernels.launches,
-            "moment_segment_sum[surfels]": surfel_kernels.launches["surfels"],
-            "moment_segment_sum[fuse]": surfel_kernels.launches["fuse"],
-            "conditional_slab_exchange_ff": atlas_kernels.launches}
+    c = _counters()
+    return {name: c[i][k] for name, (i, k) in _COUNT_KEYS.items()}
 
 
 def _slice(scans, n):
@@ -452,9 +805,10 @@ def run_replay(cfg, label: str, want: dict, ds, scans) -> dict:
     m = ate(poses, ds.gt_poses, align="initial")
     m_odom = ate(ds.scans["odom_pose"], ds.gt_poses, align="initial")
     for name, n in counts.items():
-        if n != want[name]:
+        if n != want.get(name, 0):
             raise AssertionError(f"{label}: {name} launched {n} times in "
-                                 f"the main path, expected {want[name]}")
+                                 f"the main path, expected "
+                                 f"{want.get(name, 0)}")
     if syncs:
         raise AssertionError(f"{label}: {syncs} host syncs in the replay")
     for key in ("trans", "rot_deg"):
@@ -513,6 +867,133 @@ def main_path() -> dict:
     return counts
 
 
+def _first_scans(shards, n):
+    """The first ``n`` scans of batched scan inputs (time is axis 1)."""
+    return tuple(type(sc)(*[f[:, :n] for f in sc]) for sc in shards)
+
+
+def batched_path() -> dict:
+    """Phase 6: the instance-batched replay of ``GCConfig.tpu()``, B =
+    N_INST instances of N_SCANS drifting-odometry scans (seeds SEED ..
+    SEED + B - 1)."""
+    import collections
+    import re
+
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch import certs
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.eval.metrics import ate
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.parallel import replicas
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    cfg = GCConfig.tpu()
+    B, R = N_INST, cfg.view_refresh_every
+    t0 = time.perf_counter()
+    dss = [simulate(cfg, n_scans=N_SCANS, seed=SEED + i,
+                    odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+           for i in range(B)]
+    mesh = replicas.make_mesh()
+    scans = replicas.shard_scan_inputs(replicas.stack_instances(
+        [to_scan_inputs(ds, cfg) for ds in dss]), mesh)
+    print(f"batched staging: {B} instances in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    anchors = [ds.gt_poses[0] for ds in dss]
+    t0s = [float(ds.gt_stamps[0]) - 0.1 for ds in dss]
+    run = replicas.batched_replay(cfg, mesh)
+
+    def fresh():
+        return replicas.init_states_batched(cfg, B, anchors0=anchors,
+                                            t0=t0s, mesh=mesh)
+
+    run(fresh(), _first_scans(scans, R))               # warm-up chunk
+    torch.cuda.synchronize()
+    states = fresh()
+    state_bytes = certs.memory_envelope(cfg, B)["state_bytes"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            _, (out,) = run(states, scans)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    syncs = sum(_SYNC_WARNING in str(w.message) for w in caught)
+    fallbacks = collections.Counter(
+        (re.findall(r"batching rule for (\S+?)\.? ", str(w.message))
+         or ["?"])[0] for w in caught if _VMAP_FALLBACK in str(w.message))
+    del states
+    poses = out.pose.cpu().numpy()
+    if poses.shape != (B, N_SCANS, 6) or not np.isfinite(poses).all():
+        raise AssertionError(f"batched replay: poses {poses.shape}, finite "
+                             f"{np.isfinite(poses).all()}")
+    inst = []
+    for i, ds in enumerate(dss):
+        m = ate(poses[i], ds.gt_poses, align="initial")
+        mo = ate(ds.scans["odom_pose"], ds.gt_poses, align="initial")
+        inst.append(dict(seed=SEED + i, ate_trans_m=m["trans"]["rmse"],
+                         ate_rot_deg=m["rot_deg"]["rmse"],
+                         odom_ate_trans_m=mo["trans"]["rmse"],
+                         odom_ate_rot_deg=mo["rot_deg"]["rmse"]))
+    want = {name: 0 for name in counts}
+    for name in ("predict_evidence[batched]", "scalar_tail[batched]",
+                 "sinkhorn_piT[batched]",
+                 "moment_segment_sum[surfels,batched]",
+                 "moment_segment_sum[fuse,batched]", "page_gather_ff",
+                 "page_writeback_ff"):
+        want[name] = N_SCANS
+    want["conditional_slab_exchange_ff[batched]"] = N_SCANS // R
+
+    # Instance 0 against the single-instance replay of the same data.
+    cfg1 = cfg.replace(insert_page_dense=True)
+    _, one = replay(init_state(cfg1, anchor0=anchors[0], t0=t0s[0]),
+                    to_scan_inputs(dss[0], cfg1), cfg1)
+    diff0 = (out.pose[0] - one.pose).abs().max().item()
+
+    # Two 20-scan batched reruns from fresh states.
+    p1 = run(fresh(), _first_scans(scans, N_RERUN))[1][0].pose
+    p2 = run(fresh(), _first_scans(scans, N_RERUN))[1][0].pose
+    same = bool(torch.equal(p1, p2))
+    result = dict(
+        config="GCConfig.tpu() batched (insert_page_dense)", instances=B,
+        scans=N_SCANS, chunks=N_SCANS // R,
+        scan_instances_per_s=B * N_SCANS / t_run,
+        ms_per_batched_scan=t_run / N_SCANS * 1e3, peak_mem_bytes=peak,
+        state_bytes=state_bytes, peak_factor=peak / (B * state_bytes),
+        instances_ate=inst, launches=counts, host_syncs_in_replay=syncs,
+        vmap_fallback_warnings=sum(fallbacks.values()),
+        vmap_fallback_ops=dict(fallbacks),
+        instance0_vs_single_max_pose_diff=diff0,
+        rerun_scans=N_RERUN, rerun_identical=same)
+    print("batched: " + json.dumps(result), flush=True)
+    for name, n in counts.items():
+        if n != want[name]:
+            raise AssertionError(f"batched replay: {name} launched {n} "
+                                 f"times, expected {want[name]}")
+    if syncs:
+        raise AssertionError(f"batched replay: {syncs} host syncs")
+    for r in inst:
+        if not (r["ate_trans_m"] < r["odom_ate_trans_m"]
+                and r["ate_rot_deg"] < r["odom_ate_rot_deg"]):
+            raise AssertionError(f"batched replay: instance seed "
+                                 f"{r['seed']} does not beat its odometry: "
+                                 f"{r}")
+    if not diff0 < 1e-3:
+        raise AssertionError(f"batched instance 0 differs from the single "
+                             f"replay by {diff0}")
+    if not same:
+        raise AssertionError("batched reruns differ")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -532,13 +1013,15 @@ def main() -> int:
           f"fl_slam_tpu_torch/csrc in {seconds:.1f} s", flush=True)
     print(_card_line(), flush=True)
 
-    rows = check_kernels() + check_belief_kernels()
+    rows = check_kernels() + check_belief_kernels() + check_batched_kernels()
     counts = main_path()
+    bcounts = batched_path()
     for row in rows:
-        name = row["name"]
-        key = ("conditional_slab_exchange_ff"
-               if name.startswith("conditional_slab_exchange_ff") else name)
-        row["launches"] = counts[key]
+        key = row.pop("launch_key")
+        # One-instance kernels count in the GCConfig.tpu() replay of phase
+        # 4; the batched ones (and K6, K10) in the batched replay of phase 6.
+        row["launches"] = (counts[key] if key in _SINGLE_PATH
+                           else bcounts[key])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -658,15 +658,11 @@ _UNPORTED = (
     (lambda c: c.select_kernel,
      "select_kernel=True (fused candidate selection, K9) comes with a later "
      "slice"),
-    (lambda c: c.insert_page_dense,
-     "insert_page_dense=True (dense page write-back, K6) comes with the "
-     "batched-instances slice"),
     (lambda c: not (c.sinkhorn_kernel and c.surfel_moment_kernel
                     and c.fuse_moment_kernel and c.slab_dma_kernel),
-     "the port runs GCConfig.tpu() with its Sinkhorn, moment and "
-     "slab-exchange kernels always on (CUDA tensors; their plain versions "
-     "on CPU tensors); the reference turns them off for batched replicas, "
-     "which come with the batched-instances slice"),
+     "the port runs its Sinkhorn, moment and slab-exchange kernels always "
+     "(CUDA tensors; their plain versions on CPU tensors, also in the "
+     "batched replay); no slice ports the reference's XLA forms of them"),
 )
 
 

@@ -4,7 +4,9 @@
 // moment_segment_sum (Pallas body _moment_body, :56), called at
 // ops/surfels.py:138 (payload (11, 8192) into 8192 surfel cells) and at
 // structures/atlas.py:869 (compact fuse: (32, 12288) into 5376 view rows).
-// Ids outside [0, C) drop, as segment_sum and .at[].add drop them. The TPU
+// Ids outside [0, C) drop, as segment_sum and .at[].add drop them. With B
+// instances stacked on a leading axis, grid axis z (and y of the combine
+// pass) runs instance b: the batched replay launches once for all. The TPU
 // kernel's one-hot bf16x2 MXU factoring is a TPU device trick and is not
 // carried over: this kernel sums in the working dtype.
 //
@@ -37,6 +39,10 @@ moment_partial(const T* __restrict__ payload, const int* __restrict__ cell,
   int* sid = reinterpret_cast<int*>(spay + static_cast<size_t>(F) * kTile);
   const int c = blockIdx.x * kThreads + threadIdx.x;
   const int y = blockIdx.y;
+  // Instance blockIdx.z of stacked (B, F, N) / (B, N) / (B, Y, F, C).
+  payload += static_cast<size_t>(blockIdx.z) * F * N;
+  cell += static_cast<size_t>(blockIdx.z) * N;
+  part += static_cast<size_t>(blockIdx.z) * gridDim.y * F * C;
   const int n0 = y * span, n1 = min(N, n0 + span);
   T acc[FM];
 #pragma unroll
@@ -72,14 +78,16 @@ __global__ void moment_combine(const T* __restrict__ part, T* __restrict__ out,
                                int FC, int Y) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= FC) return;
+  part += static_cast<size_t>(blockIdx.y) * Y * FC;
+  out += static_cast<size_t>(blockIdx.y) * FC;
   T s = part[j];
   for (int y = 1; y < Y; ++y) s += part[static_cast<size_t>(y) * FC + j];
   out[j] = s;
 }
 
 template <typename T, int FM>
-int launch_fm(const T* payload, const int* cell, T* part, T* out, int F,
-              int N, int C, int Y, cudaStream_t stream) {
+int launch_fm(const T* payload, const int* cell, T* part, T* out, int B,
+              int F, int N, int C, int Y, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(F) * kTile * sizeof(T)
                       + kTile * sizeof(int);
   cudaError_t e = cudaFuncSetAttribute(
@@ -87,24 +95,28 @@ int launch_fm(const T* payload, const int* cell, T* part, T* out, int F,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int span = (N + Y - 1) / Y;
-  const dim3 grid((C + kThreads - 1) / kThreads, Y);
+  const dim3 grid((C + kThreads - 1) / kThreads, Y, B);
   moment_partial<T, FM><<<grid, kThreads, smem, stream>>>(payload, cell, part,
                                                           F, N, C, span);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int FC = F * C;
-  moment_combine<T><<<(FC + 255) / 256, 256, 0, stream>>>(part, out, FC, Y);
+  moment_combine<T><<<dim3((FC + 255) / 256, B), 256, 0, stream>>>(part, out,
+                                                                    FC, Y);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const T* payload, const int* cell, T* part, T* out, int F, int N,
-           int C, int Y, void* stream) {
-  if (C <= 0 || F <= 0) return 0;
+int launch(const T* payload, const int* cell, T* part, T* out, int B, int F,
+           int N, int C, int Y, void* stream) {
+  if (C <= 0 || F <= 0 || B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F <= 16) return launch_fm<T, 16>(payload, cell, part, out, F, N, C, Y, s);
-  if (F <= 32) return launch_fm<T, 32>(payload, cell, part, out, F, N, C, Y, s);
-  if (F <= 64) return launch_fm<T, 64>(payload, cell, part, out, F, N, C, Y, s);
+  if (F <= 16)
+    return launch_fm<T, 16>(payload, cell, part, out, B, F, N, C, Y, s);
+  if (F <= 32)
+    return launch_fm<T, 32>(payload, cell, part, out, B, F, N, C, Y, s);
+  if (F <= 64)
+    return launch_fm<T, 64>(payload, cell, part, out, B, F, N, C, Y, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -113,13 +125,13 @@ int launch(const T* payload, const int* cell, T* part, T* out, int F, int N,
 FL_DEFINE_ERROR_STRING
 
 extern "C" int moment_f32(const float* payload, const int* cell, float* part,
-                          float* out, int F, int N, int C, int Y,
+                          float* out, int B, int F, int N, int C, int Y,
                           void* stream) {
-  return launch<float>(payload, cell, part, out, F, N, C, Y, stream);
+  return launch<float>(payload, cell, part, out, B, F, N, C, Y, stream);
 }
 
 extern "C" int moment_f64(const double* payload, const int* cell,
-                          double* part, double* out, int F, int N, int C,
-                          int Y, void* stream) {
-  return launch<double>(payload, cell, part, out, F, N, C, Y, stream);
+                          double* part, double* out, int B, int F, int N,
+                          int C, int Y, void* stream) {
+  return launch<double>(payload, cell, part, out, B, F, N, C, Y, stream);
 }

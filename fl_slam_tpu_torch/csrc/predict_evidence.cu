@@ -1,8 +1,11 @@
-// K1: predict + IMU / odometry evidence of the K=1 belief chain, one block.
+// K1: predict + IMU / odometry evidence of the K=1 belief chain, one block
+// per instance.
 //
 // Replaces the TPU kernel fl_slam_tpu/ops/belief_kernels.py:1344
 // predict_evidence (Pallas body _pe_kernel_body, math _pe_math at :977),
-// called at fl_slam_tpu/pipeline.py:662. Same math as the plain version
+// called at fl_slam_tpu/pipeline.py:662, and its instance-batched form
+// (K7, _batched_pallas at :600, called at :621): with B instances stacked
+// on a leading axis, block b runs instance b, so one launch serves all. Same math as the plain version
 // fl_slam_tpu_torch/ops/belief_kernels.py:pe_math_plain: the mechanized OU
 // predict (F Sigma F^T, the 22x22 inverse), the odometry pose factor
 // (absolute, or relative + absolute mix: both branches are compiled in and
@@ -48,7 +51,7 @@ enum Pk {
   kTransportSigma = 5, kPosePrev = 6, kMotionRot = 12, kMotionP = 15,
   kMotionV = 18, kOmegaAvg = 21, kABodyMean = 24, kOdomVel = 27,
   kOdomOmega = 30, kOdomPose = 33, kGravXbar = 39, kAccM1 = 42, kAccSw = 45,
-  kOdomRel = 46, kFirstScan = 52
+  kOdomRel = 46, kFirstScan = 52, kPkLen = 53
 };
 
 // Output buffer (ops/belief_kernels.py PE_OUT).
@@ -88,6 +91,14 @@ pe_kernel(const T* __restrict__ anchor, const T* __restrict__ mu_prev,
   __shared__ T s6W[36], s6L[36], s6X[36];
   __shared__ T sRanc[9], sF[3];  // R_anchor; exp_factor, diff_coeff, dt
 
+  // One block per instance: block b reads and writes instance b of
+  // operands stacked with a leading instance axis (one instance: b = 0).
+  {
+    const int b = blockIdx.x;
+    anchor += b * 7; mu_prev += b * N; sigma_prev += b * N * N;
+    R_prev += b * 9; Q += b * N * N; sigma_g += b * 9; sigma_a += b * 9;
+    odom_cov += b * 36; acc_M2 += b * 9; pk += b * kPkLen; out += b * oEnd;
+  }
   const int tid = threadIdx.x, nt = blockDim.x;
   const T eps_psd = T(p.eps_psd), eps_lift = T(p.eps_lift);
   const T dt_sec = pk[kDtSec];
@@ -550,8 +561,9 @@ template <typename T>
 int launch(const T* anchor, const T* mu_prev, const T* sigma_prev,
            const T* R_prev, const T* Q, const T* sigma_g, const T* sigma_a,
            const T* odom_cov, const T* acc_M2, const T* pk, T* out,
-           const PeParams* params, void* stream) {
-  pe_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+           const PeParams* params, int B, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  pe_kernel<T><<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       anchor, mu_prev, sigma_prev, R_prev, Q, sigma_g, sigma_a, odom_cov,
       acc_M2, pk, out, *params);
   return static_cast<int>(cudaGetLastError());
@@ -564,10 +576,10 @@ FL_DEFINE_ERROR_STRING
   extern "C" int NAME(const T* anchor, const T* mu_prev, const T* sigma_prev, \
                       const T* R_prev, const T* Q, const T* sigma_g,          \
                       const T* sigma_a, const T* odom_cov, const T* acc_M2,   \
-                      const T* pk, T* out, const PeParams* params,            \
+                      const T* pk, T* out, const PeParams* params, int B,     \
                       void* stream) {                                         \
     return launch<T>(anchor, mu_prev, sigma_prev, R_prev, Q, sigma_g,         \
-                     sigma_a, odom_cov, acc_M2, pk, out, params, stream);     \
+                     sigma_a, odom_cov, acc_M2, pk, out, params, B, stream);  \
   }
 FL_PE_ENTRY(predict_evidence_f32, float)
 FL_PE_ENTRY(predict_evidence_f64, double)

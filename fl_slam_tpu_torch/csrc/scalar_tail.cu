@@ -1,4 +1,9 @@
-// K2: the scalar belief tail of the K=1 scan update, one block.
+// K2: the scalar belief tail of the K=1 scan update, one block per
+// instance.
+//
+// With B instances stacked on a leading axis, block b runs instance b: one
+// launch serves all of them (the instance-batched form K7,
+// fl_slam_tpu/ops/belief_kernels.py:600 _batched_pallas, called at :621).
 //
 // Replaces the TPU kernel fl_slam_tpu/ops/belief_kernels.py:676
 // scalar_tail (Pallas body _kernel_body at :540, math _tail_math at :249),
@@ -74,6 +79,16 @@ tail_kernel(const T* __restrict__ L_pred, const T* __restrict__ h_pred,
   // beta, alpha, a_dt, a_ex, tr(L_ev beta), certs 0..4 (temper, exc)
   __shared__ T sS[12];
 
+  // One block per instance: block b reads and writes instance b of
+  // operands stacked with a leading instance axis (one instance: b = 0).
+  {
+    const int b = blockIdx.x;
+    L_pred += b * N * N; h_pred += b * N; anchor += b * 7; mu_pred += b * N;
+    L_io += b * N * N; h_io += b * N; z_lin += b * N; L_vis += b * N * N;
+    h_vis_rel += b * N; dz_odom += b * 6; pnu += b * 7; ppsi += b * 252;
+    mnu += b * 3; mpsi += b * 27; dpsi_gyro += b * 9; dpsi_accel += b * 9;
+    dpsi_lidar += b * 9; scal += b * 5; out += b * oEnd;
+  }
   const int tid = threadIdx.x, nt = blockDim.x;
   const T eps_psd = T(p.eps_psd), eps_lift = T(p.eps_lift);
   const T eps_mass = T(p.eps_mass);
@@ -398,9 +413,10 @@ tail_kernel(const T* __restrict__ L_pred, const T* __restrict__ h_pred,
 // Host-side launch entry points (plain C interface, loaded with ctypes).
 namespace {
 template <typename T>
-int launch(const T* const* in, T* out, const TailParams* params,
+int launch(const T* const* in, T* out, const TailParams* params, int B,
            void* stream) {
-  tail_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  tail_kernel<T><<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
       in[10], in[11], in[12], in[13], in[14], in[15], in[16], in[17], out,
       *params);
@@ -418,11 +434,11 @@ FL_DEFINE_ERROR_STRING
                       const T* mnu, const T* mpsi, const T* dpsi_gyro,       \
                       const T* dpsi_accel, const T* dpsi_lidar,              \
                       const T* scal, T* out, const TailParams* params,       \
-                      void* stream) {                                        \
+                      int B, void* stream) {                                 \
     const T* in[18] = {L_pred, h_pred, anchor, mu_pred, L_io, h_io,          \
                        z_lin, L_vis, h_vis_rel, dz_odom, pnu, ppsi, mnu,     \
                        mpsi, dpsi_gyro, dpsi_accel, dpsi_lidar, scal};       \
-    return launch<T>(in, out, params, stream);                               \
+    return launch<T>(in, out, params, B, stream);                            \
   }
 FL_TAIL_ENTRY(scalar_tail_f32, float)
 FL_TAIL_ENTRY(scalar_tail_f64, double)

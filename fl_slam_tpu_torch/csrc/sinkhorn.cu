@@ -2,6 +2,8 @@
 //
 // Replaces the TPU kernel fl_slam_tpu/ops/assoc_kernels.py:77 sinkhorn_piT
 // (Pallas body _sinkhorn_body, :37), called at ops/association.py:287.
+// With B instances stacked on a leading axis, block b runs instance b (the
+// batched replay: one launch for all).
 // Same finite-cap form: dead source rows (log_a <= -1.5e38) hold
 // log_u = -3e38 instead of -inf, potentials are clamped at -1e30 before the
 // unbalanced exponents ua / vb, and pi = exp(log_u + logKT + log_v) where
@@ -68,6 +70,10 @@ sinkhorn_kernel(const T* __restrict__ logKT, const T* __restrict__ log_a,
 
   const T log_zero = T(-3e38), dead_thr = T(-1.5e38), neg_cap = T(-1e30);
   const int tid = threadIdx.x;
+  // One block per instance (blockIdx.x) of stacked (B, K, N) operands.
+  logKT += static_cast<size_t>(blockIdx.x) * K * N;
+  piT += static_cast<size_t>(blockIdx.x) * K * N;
+  log_a += static_cast<size_t>(blockIdx.x) * N;
   for (int i = tid; i < K * N; i += kThreads) sK[i] = logKT[i];
   for (int n = tid; n < N; n += kThreads) {
     sa[n] = log_a[n];
@@ -133,7 +139,7 @@ sinkhorn_kernel(const T* __restrict__ logKT, const T* __restrict__ log_a,
 }
 
 template <typename T, int KM>
-int launch_km(const T* logKT, const T* log_a, T* piT, int K, int N,
+int launch_km(const T* logKT, const T* log_a, T* piT, int B, int K, int N,
               int n_iter, double ua, double vb, double log_b,
               cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(K) + 2) * N * sizeof(T);
@@ -141,22 +147,24 @@ int launch_km(const T* logKT, const T* log_a, T* piT, int K, int N,
       sinkhorn_kernel<T, KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  sinkhorn_kernel<T, KM><<<1, kThreads, smem, stream>>>(
+  sinkhorn_kernel<T, KM><<<B, kThreads, smem, stream>>>(
       logKT, log_a, piT, K, N, n_iter, T(ua), T(vb), T(log_b));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const T* logKT, const T* log_a, T* piT, int K, int N, int n_iter,
-           double ua, double vb, double log_b, void* stream) {
+int launch(const T* logKT, const T* log_a, T* piT, int B, int K, int N,
+           int n_iter, double ua, double vb, double log_b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (K <= 8)
-    return launch_km<T, 8>(logKT, log_a, piT, K, N, n_iter, ua, vb, log_b, s);
+    return launch_km<T, 8>(logKT, log_a, piT, B, K, N, n_iter, ua, vb, log_b,
+                           s);
   if (K <= 16)
-    return launch_km<T, 16>(logKT, log_a, piT, K, N, n_iter, ua, vb, log_b,
+    return launch_km<T, 16>(logKT, log_a, piT, B, K, N, n_iter, ua, vb, log_b,
                             s);
   if (K <= 32)
-    return launch_km<T, 32>(logKT, log_a, piT, K, N, n_iter, ua, vb, log_b,
+    return launch_km<T, 32>(logKT, log_a, piT, B, K, N, n_iter, ua, vb, log_b,
                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -166,15 +174,17 @@ int launch(const T* logKT, const T* log_a, T* piT, int K, int N, int n_iter,
 FL_DEFINE_ERROR_STRING
 
 extern "C" int sinkhorn_f32(const float* logKT, const float* log_a,
-                            float* piT, int K, int N, int n_iter, double ua,
-                            double vb, double log_b, void* stream) {
-  return launch<float>(logKT, log_a, piT, K, N, n_iter, ua, vb, log_b,
+                            float* piT, int B, int K, int N, int n_iter,
+                            double ua, double vb, double log_b,
+                            void* stream) {
+  return launch<float>(logKT, log_a, piT, B, K, N, n_iter, ua, vb, log_b,
                        stream);
 }
 
 extern "C" int sinkhorn_f64(const double* logKT, const double* log_a,
-                            double* piT, int K, int N, int n_iter, double ua,
-                            double vb, double log_b, void* stream) {
-  return launch<double>(logKT, log_a, piT, K, N, n_iter, ua, vb, log_b,
+                            double* piT, int B, int K, int N, int n_iter,
+                            double ua, double vb, double log_b,
+                            void* stream) {
+  return launch<double>(logKT, log_a, piT, B, K, N, n_iter, ua, vb, log_b,
                         stream);
 }

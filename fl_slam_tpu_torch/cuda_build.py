@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("sinkhorn", "moment", "slab_exchange", "predict_evidence",
-           "scalar_tail")
+SOURCES = ("sinkhorn", "moment", "slab_exchange", "page_io",
+           "predict_evidence", "scalar_tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # The belief kernels round every product, as their plain versions do: K1's

@@ -8,11 +8,15 @@ trust alpha and additive fusion, Frobenius recompose, anchor drift, the K=1
 barycenter and the IW noise updates, all off one 22x22 factorization with
 23 right-hand sides, and threads the next scan's mean and covariance.
 
-``predict_evidence`` and ``scalar_tail`` launch the hand-written CUDA
-kernels (``csrc/predict_evidence.cu``, ``csrc/scalar_tail.cu``) for CUDA
-tensors and run the plain versions (``pe_math_plain``, ``tail_math_plain``)
-for CPU tensors; any other device, or a mismatched dtype, raises.
-``launches`` counts kernel launches per kernel.
+``predict_evidence`` and ``scalar_tail`` go through
+``torch.library.custom_op``s that launch the hand-written CUDA kernels
+(``csrc/predict_evidence.cu``, ``csrc/scalar_tail.cu``) for CUDA tensors and
+run the plain versions (``pe_math_plain``, ``tail_math_plain``) for CPU
+tensors; any other device, or a mismatched dtype, raises. Their
+instance-batching rules (``register_vmap``) are the port of the reference's
+``_batched_pallas`` (K7): under ``torch.func.vmap`` one launch serves every
+instance, one block each. ``launches`` counts kernel launches per kernel,
+one-instance and batched apart.
 
 The plain versions copy the reference's math, not its Mosaic workarounds:
 no masked-reduction row/block extraction and a true ``atan2`` instead of the
@@ -36,6 +40,7 @@ from fl_slam_tpu_torch.config import (D_Z, GRAVITY_W, IDX_BA, IDX_DT, IDX_EX,
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.core.linalg import project_psd3
 from fl_slam_tpu_torch.core.vmf import kappa_from_resultant
+from fl_slam_tpu_torch.runtime import instance_first
 
 # Cert scalars K2 emits, in vector order.
 CERT_KEYS = (
@@ -107,7 +112,8 @@ PK_LEN = 53
 _IW_DIMS = (3, 3, 3, 3, 3, 1, 6)
 _IW_STARTS = (0, 3, 6, 9, 12, 15, 16)
 
-launches = {"predict_evidence": 0, "scalar_tail": 0}
+launches = {"predict_evidence": 0, "scalar_tail": 0,
+            "predict_evidence_batched": 0, "scalar_tail_batched": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -758,20 +764,75 @@ def _check(name, tensors, shapes, dtype, device):
                              f"{tuple(t.shape)}, expected {shape}")
 
 
-def _launch(name, fn_name, params, ins, n_out, like):
+def _launch(name, params, ins, n_out, key):
+    """The kernel on operands stacked with a leading instance axis of B:
+    one block per instance. Returns the (B, n_out) output buffers."""
+    like = ins[0]
+    B = like.shape[0]
     lib = cuda_build.library(name)
-    fn = getattr(lib, f"{fn_name}_f32" if like.dtype == torch.float32
-                 else f"{fn_name}_f64")
-    fn.argtypes = ([ctypes.c_void_p] * (len(ins) + 1) + [ctypes.c_void_p,
-                                                         ctypes.c_void_p])
+    fn = getattr(lib, f"{name}_f32" if like.dtype == torch.float32
+                 else f"{name}_f64")
+    fn.argtypes = ([ctypes.c_void_p] * (len(ins) + 1)
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ins = [t.contiguous() for t in ins]
-    out = torch.empty((n_out,), dtype=like.dtype, device=like.device)
+    out = torch.empty((B, n_out), dtype=like.dtype, device=like.device)
     rc = fn(*[t.data_ptr() for t in ins], out.data_ptr(),
-            ctypes.addressof(params), cuda_build.stream_ptr(like.device))
+            ctypes.addressof(params), B, cuda_build.stream_ptr(like.device))
     cuda_build.check(lib, rc, name)
-    launches[name] += 1
+    launches[key] += 1
     return out
+
+
+# The ops take the config by key: a custom op's arguments are tensors and
+# plain scalars, and the plain versions read the whole config.
+_CFGS: dict = {}
+
+
+def _cfg_key(cfg: GCConfig) -> int:
+    _CFGS.setdefault(id(cfg), cfg)
+    return id(cfg)
+
+
+def _flat(outs):
+    return torch.cat([t.reshape(-1) for t in outs])
+
+
+def _belief_op(name, plain, params, layout, n_skip):
+    """The custom op of a belief kernel and its instance-batching rule.
+    The op takes the operand list of ``plain`` (the kernel skips the first
+    ``n_skip``) and returns the flat output buffer of ``layout``."""
+    qual = f"fl_slam::{name}"
+    n_out = out_len(layout)
+
+    @torch.library.custom_op(qual, mutates_args=())
+    def op(ins: list[torch.Tensor], cfg_key: int) -> torch.Tensor:
+        cfg = _CFGS[cfg_key]
+        dev = ins[0].device
+        if dev.type == "cpu":
+            return _flat(plain(cfg, *ins))
+        return _launch(name, params(cfg), [t[None] for t in ins[n_skip:]],
+                       n_out, name)[0]
+
+    @torch.library.register_vmap(qual)
+    def op_vmap(info, in_dims, ins, cfg_key):
+        cfg = _CFGS[cfg_key]
+        B = info.batch_size
+        ins = [instance_first(B, t, d) for t, d in zip(ins, in_dims[0])]
+        dev = ins[0].device
+        if dev.type == "cpu":
+            return torch.stack([_flat(plain(cfg, *[t[b] for t in ins]))
+                                for b in range(B)]), 0
+        return _launch(name, params(cfg), ins[n_skip:], n_out,
+                       f"{name}_batched"), 0
+
+    return op
+
+
+_pe_op = _belief_op("predict_evidence", pe_math_plain, _pe_params, PE_OUT,
+                    2)
+_tail_op = _belief_op("scalar_tail", tail_math_plain, _tail_params,
+                      TAIL_OUT, 0)
 
 
 _PE_SHAPES = ((7,), (D_Z,), (D_Z, D_Z), (3, 3), (D_Z, D_Z), (3, 3), (3, 3),
@@ -782,23 +843,18 @@ def predict_evidence_packed(cfg: GCConfig, L_prev, h_prev, anchor, mu_prev,
                             sigma_prev, R_prev, Q, sigma_g, sigma_a, odom_cov,
                             acc_M2, pk):
     """K1 on the packed vector: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor. Returns the kernel's outputs (``PE_OUT``)."""
+    version on a CPU tensor; one launch for all instances under
+    ``torch.func.vmap``. Returns the kernel's outputs (``PE_OUT``)."""
     dev, dt = L_prev.device, L_prev.dtype
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"predict_evidence: dtype {dt}")
-    ins = (anchor, mu_prev, sigma_prev, R_prev, Q, sigma_g, sigma_a,
-           odom_cov, acc_M2, pk)
-    _check("predict_evidence", (L_prev, h_prev) + ins,
-           ((D_Z, D_Z), (D_Z,)) + _PE_SHAPES, dt, dev)
-    if dev.type == "cpu":
-        return pe_math_plain(cfg, L_prev, h_prev, anchor, mu_prev,
-                             sigma_prev, R_prev, Q, sigma_g, sigma_a,
-                             odom_cov, acc_M2, pk)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"predict_evidence: unsupported device {dev}")
-    out = _launch("predict_evidence", "predict_evidence", _pe_params(cfg),
-                  ins, out_len(PE_OUT), L_prev)
-    return _views(out, PE_OUT)
+    ins = (L_prev, h_prev, anchor, mu_prev, sigma_prev, R_prev, Q, sigma_g,
+           sigma_a, odom_cov, acc_M2, pk)
+    _check("predict_evidence", ins, ((D_Z, D_Z), (D_Z,)) + _PE_SHAPES, dt,
+           dev)
+    return _views(_pe_op(list(ins), _cfg_key(cfg)), PE_OUT)
 
 
 def predict_evidence(cfg: GCConfig, L_prev, h_prev, anchor, mu_prev,
@@ -839,18 +895,15 @@ _TAIL_SHAPES = ((D_Z, D_Z), (D_Z,), (7,), (D_Z,), (D_Z, D_Z), (D_Z,), (D_Z,),
 
 def scalar_tail_packed(cfg: GCConfig, *ins):
     """K2 on its 18 operands (the last is ``scal`` (5,)): the kernel on CUDA
-    tensors, the plain version on CPU tensors. Returns ``TAIL_OUT``."""
+    tensors, the plain version on CPU tensors; one launch for all instances
+    under ``torch.func.vmap``. Returns ``TAIL_OUT``."""
     dev, dt = ins[0].device, ins[0].dtype
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"scalar_tail: dtype {dt}")
-    _check("scalar_tail", ins, _TAIL_SHAPES, dt, dev)
-    if dev.type == "cpu":
-        return tail_math_plain(cfg, *ins)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"scalar_tail: unsupported device {dev}")
-    out = _launch("scalar_tail", "scalar_tail", _tail_params(cfg), ins,
-                  out_len(TAIL_OUT), ins[0])
-    return _views(out, TAIL_OUT)
+    _check("scalar_tail", ins, _TAIL_SHAPES, dt, dev)
+    return _views(_tail_op(list(ins), _cfg_key(cfg)), TAIL_OUT)
 
 
 def scalar_tail(cfg: GCConfig, L_pred, h_pred, anchor, mu_pred, L_io, h_io,

@@ -11,12 +11,13 @@ from __future__ import annotations
 
 import torch
 
-from fl_slam_tpu_torch.config import D_Z, IDX_BA, IDX_ROT, IDX_TRANS, IDX_VEL
+from fl_slam_tpu_torch.config import IDX_BA, IDX_ROT, IDX_TRANS, IDX_VEL
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.core.linalg import (project_psd3, psd_guard,
                                            spd_inverse_lifted)
 from fl_slam_tpu_torch.core.vmf import kappa_from_resultant
-from fl_slam_tpu_torch.ops.embed import evidence_from_block
+from fl_slam_tpu_torch.ops.embed import (evidence_from_block, pad_block,
+                                         pad_vec)
 
 
 def _floor(x, lo: float):
@@ -311,12 +312,9 @@ def preintegration_factor(p_start, rotvec_start, v_start, p_end_pred,
     L_p, lift_p = spd_inverse_lifted(Sp, eps_lift)
     L_v = mass_scale * L_v
     L_p = mass_scale * L_p
-    L = p_start.new_zeros((D_Z, D_Z))
-    h = p_start.new_zeros((D_Z,))
-    L[IDX_TRANS, IDX_TRANS] = L_p
-    h[IDX_TRANS] = L_p @ r_pos
-    L[IDX_VEL, IDX_VEL] = L_v
-    h[IDX_VEL] = L_v @ r_vel
+    L = (pad_block(IDX_TRANS, IDX_TRANS, L_p)
+         + pad_block(IDX_VEL, IDX_VEL, L_v))
+    h = pad_vec(IDX_TRANS, L_p @ r_pos) + pad_vec(IDX_VEL, L_v @ r_vel)
     certs = {
         "imu_preint.nll_proxy": 0.5 * (r_vel @ L_v @ r_vel
                                        + r_pos @ L_p @ r_pos),

@@ -91,9 +91,9 @@ def process_suffstats(L_post, eps_lift: float, mu_pred, mu_post):
     """dPsi blocks of (r r^T + Sigma_post), r = mu_post - mu_pred; dnu = 1."""
     Sigma_post, _ = spd_inverse_lifted(L_post, eps_lift)
     r = mu_post - mu_pred
-    dpsi = L_post.new_zeros((7, 6, 6))
-    for i, (d, sl) in enumerate(zip(_BLOCK_DIMS, _BLOCK_SLICES)):
-        dpsi[i, :d, :d] = torch.outer(r[sl], r[sl]) + Sigma_post[sl, sl]
+    dpsi = torch.stack([torch.nn.functional.pad(
+        torch.outer(r[sl], r[sl]) + Sigma_post[sl, sl], (0, 6 - d, 0, 6 - d))
+        for d, sl in zip(_BLOCK_DIMS, _BLOCK_SLICES)])
     return dpsi, L_post.new_ones((7,))
 
 

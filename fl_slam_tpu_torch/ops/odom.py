@@ -10,7 +10,8 @@ from fl_slam_tpu_torch.config import IDX_POSE, IDX_ROT, IDX_TRANS, IDX_VEL
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.core.linalg import psd_guard, spd_inverse_lifted
 from fl_slam_tpu_torch.ops.embed import (evidence_from_block,
-                                         evidence_from_scalar)
+                                         evidence_from_scalar, pad_block,
+                                         pad_vec)
 
 
 def quadratic_pose_evidence(pose_pred, odom_pose, odom_cov, *, eps_psd: float,
@@ -69,12 +70,9 @@ def pose_twist_consistency(pose_prev, pose_curr, v_body, omega_body, dt,
     Sr, proj_r = psd_guard(dt2 * sigma_omega, eps_psd)
     Lt, lift_t = spd_inverse_lifted(St, eps_lift)
     Lr, lift_r = spd_inverse_lifted(Sr, eps_lift)
-    L = Lt.new_zeros((22, 22))
-    h = Lt.new_zeros((22,))
-    L[IDX_TRANS, IDX_TRANS] = Lt
-    h[IDX_TRANS] = Lt @ r_trans
-    L[IDX_ROT, IDX_ROT] = Lr
-    h[IDX_ROT] = Lr @ r_rot
+    L = (pad_block(IDX_TRANS, IDX_TRANS, Lt)
+         + pad_block(IDX_ROT, IDX_ROT, Lr))
+    h = pad_vec(IDX_TRANS, Lt @ r_trans) + pad_vec(IDX_ROT, Lr @ r_rot)
     certs = {
         "odom_kin.nll_proxy": 0.5 * (r_trans @ Lt @ r_trans
                                      + r_rot @ Lr @ r_rot),

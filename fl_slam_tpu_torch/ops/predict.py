@@ -12,6 +12,7 @@ import torch
 from fl_slam_tpu_torch.config import D_Z, IDX_POSE, IDX_TRANS, IDX_VEL
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.core.belief import Belief
+from fl_slam_tpu_torch.ops.embed import pad_block
 from fl_slam_tpu_torch.core.linalg import (cond_proxy, psd_guard,
                                            spd_inverse_lifted)
 
@@ -42,9 +43,8 @@ def predict_diffusion(b: Belief, Q, dt_sec, *, lambda_ou: float,
                                    motion.delta_v_body)
     mean_pred = torch.cat([pose_inc_new, vel_new, mean_prev[..., 9:]], -1)
 
-    F = torch.eye(D_Z, dtype=b.h.dtype, device=b.h.device).expand(
-        b.L.shape).clone()
-    F[..., IDX_TRANS, IDX_VEL] = dt_sec * R_anchor.transpose(-1, -2)
+    F = (torch.eye(D_Z, dtype=b.h.dtype, device=b.h.device)
+         + pad_block(IDX_TRANS, IDX_VEL, dt_sec * R_anchor.transpose(-1, -2)))
     cov_prop = F @ cov_prev @ F.transpose(-1, -2)
     exp_factor = torch.exp(-2.0 * lambda_ou * dt_sec)
     diff_coeff = (1.0 - exp_factor) / (2.0 * lambda_ou + 1e-300)

@@ -1,11 +1,14 @@
 """K4, the moment segment-sum ``out[f, c] = sum_n [cell_n == c] payload[f, n]``
 (port of the TPU kernel ``fl_slam_tpu/ops/surfel_kernels.py:89``).
 
-``moment_segment_sum`` launches the hand-written CUDA kernel
-(``csrc/moment.cu``) for CUDA tensors and runs the plain version
-(``moment_segment_sum_plain``) for CPU tensors; any other device raises.
-It takes any shape: there is no alignment gate. Ids outside [0, n_cells)
-drop. ``launches[site]`` counts kernel launches per call site.
+``moment_segment_sum`` is a ``torch.library.custom_op``: it launches the
+hand-written CUDA kernel (``csrc/moment.cu``) for CUDA tensors and runs the
+plain version (``moment_segment_sum_plain``) for CPU tensors; any other
+device raises. It takes any shape: there is no alignment gate. Ids outside
+[0, n_cells) drop. Its instance-batching rule (``register_vmap``) launches
+the kernel once for all instances under ``torch.func.vmap``, with a grid
+axis over them. ``launches[site]`` counts kernel launches per call site,
+``launches[site + "_batched"]`` the batched ones.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import ctypes
 import torch
 
 from fl_slam_tpu_torch import cuda_build
+from fl_slam_tpu_torch.runtime import instance_first
 
-launches = {"surfels": 0, "fuse": 0}
+launches = {"surfels": 0, "fuse": 0, "surfels_batched": 0,
+            "fuse_batched": 0}
 _MAX_F = 64          # payload rows the kernel holds in registers
 _SPAN = 1024         # ids per span of the first pass
 
@@ -28,38 +33,72 @@ def moment_segment_sum_plain(payload, cell, n_cells: int):
     return payload @ onehot.to(payload.dtype)
 
 
-def moment_segment_sum(payload, cell, n_cells: int, *, site: str):
-    """payload (F, N) float, cell (N,) int -> (F, n_cells) per-cell sums."""
-    if payload.device.type == "cpu":
-        return moment_segment_sum_plain(payload, cell, n_cells)
+def _launch(payload, cell, n_cells: int, key: str):
+    """The kernel on (B, F, N) ``payload`` and (B, N) ``cell``: a grid axis
+    over the instances."""
     if payload.device.type != "cuda":
         raise ValueError(f"moment_segment_sum: unsupported device "
                          f"{payload.device}")
-    if payload.dim() != 2 or cell.shape != (payload.shape[1],):
-        raise ValueError(f"moment_segment_sum: payload {tuple(payload.shape)}"
-                         f" and cell {tuple(cell.shape)} do not match")
+    if payload.dim() != 3 or tuple(cell.shape) != (payload.shape[0],
+                                                   payload.shape[2]):
+        raise ValueError(f"moment_segment_sum: payload "
+                         f"{tuple(payload.shape[1:])} and cell "
+                         f"{tuple(cell.shape[1:])} do not match")
     if payload.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"moment_segment_sum: dtype {payload.dtype}")
     if cell.device != payload.device:
         raise ValueError("moment_segment_sum: payload and cell devices differ")
-    F, N = payload.shape
+    B, F, N = payload.shape
     if F > _MAX_F:
         raise ValueError(f"moment_segment_sum: {F} payload rows > {_MAX_F}")
     payload = payload.contiguous()
     cell32 = cell.to(torch.int32).contiguous()
     Y = max(1, min(64, -(-N // _SPAN)))
-    part = torch.empty((Y, F, n_cells), dtype=payload.dtype,
+    part = torch.empty((B, Y, F, n_cells), dtype=payload.dtype,
                        device=payload.device)
-    out = torch.empty((F, n_cells), dtype=payload.dtype,
+    out = torch.empty((B, F, n_cells), dtype=payload.dtype,
                       device=payload.device)
     lib = cuda_build.library("moment")
     fn = lib.moment_f32 if payload.dtype == torch.float32 else lib.moment_f64
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(payload.data_ptr(), cell32.data_ptr(), part.data_ptr(),
-            out.data_ptr(), F, N, n_cells, Y,
+            out.data_ptr(), B, F, N, n_cells, Y,
             cuda_build.stream_ptr(payload.device))
     cuda_build.check(lib, rc, "moment_segment_sum")
-    launches[site] += 1
+    launches[key] += 1
     return out
+
+
+@torch.library.custom_op("fl_slam::moment_segment_sum", mutates_args=())
+def _moment(payload: torch.Tensor, cell: torch.Tensor, n_cells: int,
+            site: str) -> torch.Tensor:
+    if payload.device.type == "cpu":
+        return moment_segment_sum_plain(payload, cell, n_cells)
+    if payload.dim() != 2:
+        raise ValueError(f"moment_segment_sum: payload "
+                         f"{tuple(payload.shape)} is not (F, N)")
+    return _launch(payload[None], cell[None], n_cells, site)[0]
+
+
+@torch.library.register_vmap("fl_slam::moment_segment_sum")
+def _moment_vmap(info, in_dims, payload, cell, n_cells, site):
+    B = info.batch_size
+    pay = instance_first(B, payload, in_dims[0])
+    ids = instance_first(B, cell, in_dims[1])
+    if pay.device.type == "cpu":
+        return torch.stack([moment_segment_sum_plain(pay[b], ids[b], n_cells)
+                            for b in range(B)]), 0
+    return _launch(pay, ids, n_cells, site + "_batched"), 0
+
+
+def moment_segment_sum(payload, cell, n_cells: int, *, site: str):
+    """payload (F, N) float, cell (N,) int -> (F, n_cells) per-cell sums.
+    Under ``torch.func.vmap`` one launch serves every instance."""
+    if site not in ("surfels", "fuse"):
+        raise ValueError(f"moment_segment_sum: unknown site {site!r}")
+    if payload.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"moment_segment_sum: unsupported device "
+                         f"{payload.device}")
+    return _moment(payload, cell, int(n_cells), site)

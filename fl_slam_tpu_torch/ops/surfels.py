@@ -132,8 +132,8 @@ def extract_surfels(points_p, weights, cfg: GCConfig):
     val_sel = g[14] > 0.5
     if pad > 0:
         val_sel = val_sel & (torch.arange(S, device=dev) < (S - pad))
-    etas = torch.zeros((S, cfg.vmf_n_lobes, 3), dtype=dt, device=dev)
-    etas[:, 0, :] = kap_sel[:, None] * nrm_sel
+    etas = torch.nn.functional.pad((kap_sel[:, None] * nrm_sel)[:, None],
+                                   (0, 0, 0, cfg.vmf_n_lobes - 1))
     w_sel = torch.where(val_sel, g[13], 0.0)
 
     certs = {

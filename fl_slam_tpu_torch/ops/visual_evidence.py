@@ -9,6 +9,7 @@ import torch
 
 from fl_slam_tpu_torch.config import D_Z, IDX_ROT, IDX_TRANS
 from fl_slam_tpu_torch.core import se3
+from fl_slam_tpu_torch.ops.embed import pad_block, pad_vec
 from fl_slam_tpu_torch.core.linalg import (kabsch3x3, project_psd3,
                                            sym6_to_mat33)
 
@@ -62,12 +63,12 @@ def visual_pose_evidence(meas_pos_w, meas_prec_w, meas_dir_w, meas_kappa,
     L_r = rg * L_r
     h_r = rg * h_r
 
-    L = cfg.eps_lift * torch.eye(D_Z, dtype=dt, device=M.device)
-    h = M.new_zeros((D_Z,))
-    L[IDX_TRANS, IDX_TRANS] = R_lin.T @ L_t_w @ R_lin
-    h[IDX_TRANS] = R_lin.T @ h_t_w
-    L[IDX_ROT, IDX_ROT] = L_r
-    h[IDX_ROT] = h_r
+    rest = slice(IDX_ROT.stop, D_Z)
+    L = (pad_block(IDX_TRANS, IDX_TRANS, R_lin.T @ L_t_w @ R_lin)
+         + pad_block(IDX_ROT, IDX_ROT, L_r)
+         + pad_block(rest, rest, cfg.eps_lift * torch.eye(
+             D_Z - IDX_ROT.stop, dtype=dt, device=M.device)))
+    h = pad_vec(IDX_TRANS, R_lin.T @ h_t_w) + pad_vec(IDX_ROT, h_r)
     certs = {
         "visual.trans_cost": trans_cost,
         "visual.rot_cost": rot_cost,

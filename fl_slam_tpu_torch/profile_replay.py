@@ -1,6 +1,7 @@
 """Where the time of the port's replay goes, on one CUDA device.
 
   python3 -m fl_slam_tpu_torch.profile_replay [--belief-kernel on|off|both]
+                                             [--instances B]
 
 Replays ``GCConfig.tpu()`` (``on``, the default: the belief kernels K1/K2
 carry the belief chain), ``GCConfig.tpu(belief_kernel=False)`` (``off``:
@@ -11,7 +12,10 @@ one replay under ``torch.profiler`` (CUDA activity only), the device kernel
 time per scan, the kernel launches per scan, the device busy share against
 the median unprofiled wall time, and the kernels that take the most device
 time, among them each hand-written kernel of the port (device us per
-call).
+call). With ``--instances B`` (B > 1) it profiles the instance-batched
+replay (``parallel.replicas.batched_replay``) of B instances (seeds 3 ..
+3 + B - 1) the same way: every per-scan figure is then per batched scan,
+which advances all B instances by one scan.
 """
 
 from __future__ import annotations
@@ -25,41 +29,57 @@ N_SCANS = 20
 N_REPS = 3
 # The port's hand-written kernels (csrc/), by their device symbol.
 OWN_KERNELS = ("pe_kernel", "tail_kernel", "sinkhorn_kernel", "moment_partial",
-               "moment_combine", "exchange_kernel")
+               "moment_combine", "exchange_kernel", "page_kernel")
 
 
-def profile(belief_kernel: bool, card: str) -> dict:
+def _runner(cfg, n_instances: int):
+    """(fresh states, replay fn, scans) for one instance or B batched."""
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.parallel import replicas
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    dss = [simulate(cfg, n_scans=N_SCANS, seed=3 + i,
+                    odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+           for i in range(n_instances)]
+    if n_instances == 1:
+        ds = dss[0]
+        return (lambda: init_state(cfg, anchor0=ds.gt_poses[0],
+                                   t0=float(ds.gt_stamps[0]) - 0.1),
+                lambda st, sc: replay(st, sc, cfg), to_scan_inputs(ds, cfg))
+    mesh = replicas.make_mesh()
+    run = replicas.batched_replay(cfg, mesh)
+    scans = replicas.shard_scan_inputs(replicas.stack_instances(
+        [to_scan_inputs(ds, cfg) for ds in dss]), mesh)
+    return (lambda: replicas.init_states_batched(
+        cfg, n_instances, anchors0=[ds.gt_poses[0] for ds in dss],
+        t0=[float(ds.gt_stamps[0]) - 0.1 for ds in dss], mesh=mesh),
+        run, scans)
+
+
+def profile(belief_kernel: bool, card: str, n_instances: int = 1) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from fl_slam_tpu_torch.config import GCConfig
-    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
-    from fl_slam_tpu_torch.pipeline import init_state, replay
 
     cfg = GCConfig.tpu(belief_kernel=belief_kernel)
-    ds = simulate(cfg, n_scans=N_SCANS, seed=3, odom_drift_vel_scale=1.03,
-                  odom_drift_yaw_rate=0.01)
-    scans = to_scan_inputs(ds, cfg)
+    fresh, replay, scans = _runner(cfg, n_instances)
 
-    def fresh():
-        return init_state(cfg, anchor0=ds.gt_poses[0],
-                          t0=float(ds.gt_stamps[0]) - 0.1)
-
-    replay(fresh(), scans, cfg)
+    replay(fresh(), scans)
     torch.cuda.synchronize()
     walls = []
     for _ in range(N_REPS):
         st = fresh()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        replay(st, scans, cfg)
+        replay(st, scans)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / N_SCANS * 1e3)
 
     st = fresh()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        replay(st, scans, cfg)
+        replay(st, scans)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.self_device_time_total > 0]
@@ -72,7 +92,8 @@ def profile(belief_kernel: bool, card: str) -> dict:
     label = ("GCConfig.tpu()" if belief_kernel
              else "GCConfig.tpu(belief_kernel=False)")
     return {
-        "card": card, "config": label, "scans": N_SCANS,
+        "card": card, "config": label, "instances": n_instances,
+        "scans": N_SCANS,
         "wall_ms_per_scan": walls,
         "device_kernel_ms_per_scan": dev_ms / N_SCANS,
         "kernel_launches_per_scan": n_launch / N_SCANS,
@@ -94,7 +115,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--belief-kernel", choices=("on", "off", "both"),
                     default="on")
+    ap.add_argument("--instances", type=int, default=1,
+                    help="B > 1: the batched replay of B instances")
     args = ap.parse_args()
+    if args.instances < 1:
+        raise SystemExit("profile_replay: --instances must be >= 1")
     if not torch.cuda.is_available():
         raise SystemExit("profile_replay: no CUDA device")
     card = subprocess.run(
@@ -103,7 +128,7 @@ def main() -> None:
         timeout=60).stdout.strip()
     modes = {"on": (True,), "off": (False,), "both": (True, False)}
     for bk in modes[args.belief_kernel]:
-        print(json.dumps(profile(bk, card)), flush=True)
+        print(json.dumps(profile(bk, card, args.instances)), flush=True)
 
 
 if __name__ == "__main__":

@@ -51,3 +51,13 @@ def const(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
                                                         non_blocking=True)
         _CONSTS[key] = t
     return t
+
+
+def instance_first(B: int, x: torch.Tensor, dim) -> torch.Tensor:
+    """``x`` as seen by a kernel's instance-batching rule
+    (``torch.library.register_vmap``), with its instance axis first: moved
+    there from ``dim``, or broadcast to ``B`` instances where ``dim`` is
+    None (an operand shared by every instance)."""
+    if dim is None:
+        return x.expand(B, *x.shape)
+    return x.movedim(dim, 0)

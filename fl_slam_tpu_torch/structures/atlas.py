@@ -30,6 +30,7 @@ from fl_slam_tpu_torch.core.linalg import (det3x3, inv3x3, mat33_to_sym6,
                                            sym6_to_mat33, top_k)
 from fl_slam_tpu_torch.ops import surfel_kernels
 from fl_slam_tpu_torch.runtime import const
+from fl_slam_tpu_torch.structures import atlas_kernels
 from fl_slam_tpu_torch.structures.measurement_batch import MeasurementBatch
 
 EMPTY_KEY = -1
@@ -85,13 +86,15 @@ def put_drop_(x, dim: int, idx, src):
 
     No host sync and no data-dependent shape: each entry writes the value
     its target ends with (the kept writer's row, else the current row), so
-    repeated targets write identical values."""
+    repeated targets write identical values. Every write is out of place or
+    into ``x``, so it runs under ``torch.func.vmap``."""
     n = x.shape[dim]
     idx = idx.to(torch.int64)
     E = idx.shape[0]
     dst = torch.where(idx < n, idx, n)
-    inv = torch.full((n + 1,), -1, dtype=torch.int64, device=x.device)
-    inv.scatter_(0, dst, torch.arange(E, device=x.device))
+    inv = torch.full((n + 1,), -1, dtype=torch.int64,
+                     device=x.device).scatter(0, dst,
+                                              torch.arange(E, device=x.device))
     t = torch.clamp(idx, max=n - 1)
     w = inv.index_select(0, t)
     shape = [1] * x.dim()
@@ -99,7 +102,9 @@ def put_drop_(x, dim: int, idx, src):
     val = torch.where((w >= 0).reshape(shape),
                       src.index_select(dim, torch.clamp(w, min=0)),
                       x.index_select(dim, t))
-    x.index_copy_(dim, t, val)
+    # index_put_ on the moved view: it has an instance-batching rule under
+    # torch.func.vmap, where index_copy_ falls back to a loop.
+    x.movedim(dim, 0).index_put_((t,), val.movedim(dim, 0))
     return x
 
 
@@ -483,7 +488,10 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
     """Paged insert: the top-``k_insert`` novel measurements of each active
     tile go into the K lowest-retention slots of one non-resident page per
     tile (the fullest page that still fits K, else the least retention).
-    Writes ``sf`` in place. Returns (sf, certs, page_stats')."""
+    With ``insert_page_dense`` the target pages are gathered and written
+    back whole (K6, the batched replay's form); otherwise the inserts are a
+    column scatter. Writes ``sf`` in place. Returns (sf, certs,
+    page_stats')."""
     ff = sf.ff
     cf, SM = ff.shape
     S = active_keys.shape[0]
@@ -513,8 +521,11 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
     pscore = torch.where(excl, float("inf"), pscore)
     tgt_page = torch.argmin(pscore, 1)
     offs = torch.arange(S, device=dev) * M + tgt_page * P
-    cols = offs[:, None] + torch.arange(P, device=dev)[None, :]
-    page = ff[:, cols.reshape(-1)]
+    cols = (offs[:, None] + torch.arange(P, device=dev)[None, :]).reshape(-1)
+    if cfg.insert_page_dense:
+        page = atlas_kernels.page_gather_ff(ff, offs, P)       # K6
+    else:
+        page = ff[:, cols]
     w_in = page[o + _ROW_W].reshape(S, P)
     ls_in = page[o + _ROW_LS].reshape(S, P)
     v_in = page[o + _ROW_V].reshape(S, P) > 0.5
@@ -538,10 +549,28 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
     sub[:, o + _ROW_CS] = seqf
     sub[:, o + _ROW_LS] = seqf
     sub[:, o + _ROW_V] = 1.0
-    tgt = (torch.arange(S, device=dev)[:, None] * M + evict_slot).reshape(-1)
-    tgt_put = torch.where(do_f, tgt, SM)
-    put_drop_(ff, 1, tgt_put, sub.T)
-    put_drop_(sf.prim_ids, 0, tgt_put, new_ids)
+    if cfg.insert_page_dense:
+        # Every eviction slot lives in the one gathered target page of its
+        # tile: merge the S*K proposals into the (CF, S, P) page and write
+        # the same contiguous page columns back (K6), instead of a scattered
+        # column insert.
+        onek = ((slot_in[:, :, None] == torch.arange(P, device=dev))
+                & do_f.reshape(S, K)[:, :, None])                # (S, K, P)
+        hit = torch.any(onek, 1)                                 # (S, P)
+        merged = torch.einsum("skp,skc->csp", onek.to(dt),
+                              sub.reshape(S, K, cf))
+        upd = torch.where(hit[None], merged, page.reshape(cf, S, P))
+        atlas_kernels.page_writeback_ff(ff, offs, upd.reshape(cf, S * P), P)
+        id_sel = torch.sum(onek * new_ids.reshape(S, K, 1), 1)
+        pp = sf.prim_ids[cols].reshape(S, P)
+        sf.prim_ids.index_put_((cols,), torch.where(hit, id_sel, pp)
+                               .reshape(-1).to(torch.int32))
+    else:
+        tgt = (torch.arange(S, device=dev)[:, None] * M
+               + evict_slot).reshape(-1)
+        tgt_put = torch.where(do_f, tgt, SM)
+        put_drop_(ff, 1, tgt_put, sub.T)
+        put_drop_(sf.prim_ids, 0, tgt_put, new_ids)
     n_ins = torch.sum(do_f.to(torch.int32))
     sf = sf._replace(next_prim_id=sf.next_prim_id + n_ins)
     ins_mass = torch.sum(w_new * do_f.to(dt))

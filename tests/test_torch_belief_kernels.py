@@ -184,3 +184,41 @@ def test_wrappers_run_plain_versions_on_cpu_and_check_operands():
         tbk.scalar_tail_packed(cfg, *tail[:-1], tail[-1][:4])
     with pytest.raises(ValueError, match="device"):
         tbk.scalar_tail_packed(cfg, *[t.to("meta") for t in tail])
+
+
+def _stacked(make, dtype, n=3):
+    per = [make(dtype, seed=s) for s in range(n)]
+    return [np.stack(xs) for xs in zip(*per)]
+
+
+@pytest.mark.parametrize("branch", ["absolute", "relative"])
+def test_batched_pe_matches_reference_under_vmap(true_atan, branch):
+    """The instance-batching rule of K1 (the port of ``_batched_pallas``,
+    K7) under ``torch.func.vmap`` against the reference's kernel math under
+    ``jax.vmap``, f64, per-instance operands."""
+    ov = RELATIVE if branch == "relative" else {}
+    args = _stacked(pe_inputs, "float64")
+    ref = jax.vmap(lambda *a: jbk._pe_math_out(JCfg.small(**ov), *a))(
+        *[jnp.asarray(a) for a in args])
+    port = torch.func.vmap(lambda *a: tbk.predict_evidence_packed(
+        TCfg.small(**ov), *a))(*[torch.from_numpy(a) for a in args])
+    _assert_close(port, ref, TOL["float64"])
+
+
+def test_batched_tail_matches_reference_under_vmap(true_atan):
+    """K2's instance-batching rule under vmap, f64; one operand (the IW
+    process-noise state) shared by every instance."""
+    args = _stacked(tail_inputs, "float64")
+    shared = 10                                       # pnu: unbatched
+    in_dims = tuple(None if i == shared else 0 for i in range(len(args)))
+    args[shared] = args[shared][0]
+    ref = jax.vmap(lambda *a: jbk._tail_math(JCfg.small(), *a),
+                   in_axes=in_dims)(*[jnp.asarray(a) for a in args])
+    port = torch.func.vmap(lambda *a: tbk.scalar_tail_packed(
+        TCfg.small(), *a), in_dims=in_dims)(
+            *[torch.from_numpy(a) for a in args])
+    _assert_close(port, ref, TOL["float64"])
+    one = tbk.scalar_tail_packed(TCfg.small(), *[
+        torch.from_numpy(a if i == shared else a[1])
+        for i, a in enumerate(args)])
+    assert all(torch.equal(a[1], b) for a, b in zip(port, one))

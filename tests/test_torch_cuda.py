@@ -1,6 +1,8 @@
 """The port's CUDA kernels (K1 predict + evidence, K2 scalar tail, K3
-Sinkhorn, K4 moment segment-sum, K5 slab exchange) against their plain
-versions, in f32 and f64, on a CUDA device.
+Sinkhorn, K4 moment segment-sum, K5 slab exchange, K6 page IO, K10 the
+row-major exchange) against their plain versions, in f32 and f64, on a CUDA
+device, and their instance-batched launches (K7) against the one-instance
+ones.
 
 Every test skips without one. The file imports no JAX, so it also runs on
 the card, where JAX is absent:
@@ -210,3 +212,179 @@ def test_belief_kernels_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError, match="operand 17"):
         belief_kernels.scalar_tail_packed(
             GCConfig.tpu(), *[t.to(cuda) for t in ops[:17]], ops[17])
+
+
+# ---------------------------------------------------------------------------
+# The instance-batched launches (one kernel for B instances under
+# torch.func.vmap) against the one-instance launches and the plain versions.
+# A batched block runs the one-instance code on its own instance, so the
+# two agree bit for bit.
+# ---------------------------------------------------------------------------
+
+B = 4
+
+
+def _vmapped(fn, *args, in_dims=0):
+    return torch.func.vmap(fn, in_dims=in_dims)(*args)
+
+
+def test_batched_sinkhorn_is_the_single_kernel_per_instance(cuda):
+    x1, la1, _ = _sinkhorn_inputs(8, 1536, torch.float32)
+    x = (x1[None] + 0.01 * torch.arange(B)[:, None, None]).to(cuda)
+    la = la1.expand(B, -1).to(cuda)
+    kw = dict(n_iter=50, ua=UA, vb=VB, log_b=-math.log(8))
+    before = dict(assoc_kernels.launches)
+    got = _vmapped(lambda a, b: assoc_kernels.sinkhorn_piT(a, b, **kw), x, la)
+    assert assoc_kernels.launches["sinkhorn_piT_batched"] == \
+        before["sinkhorn_piT_batched"] + 1
+    for b in range(B):
+        one = assoc_kernels.sinkhorn_piT(x[b], la[b], **kw)
+        assert torch.equal(got[b], one)
+
+
+@pytest.mark.parametrize("F,N,C", [(11, 8192, 8192), (32, 12288, 5376)])
+def test_batched_moment_is_the_single_kernel_per_instance(cuda, F, N, C):
+    g = torch.Generator().manual_seed(F)
+    pay = torch.randn((B, F, N), generator=g).to(cuda)
+    cell = ((torch.rand((B, N), generator=g) ** 3) * C).long().to(cuda)
+    before = surfel_kernels.launches["fuse_batched"]
+    got = _vmapped(lambda p, c: surfel_kernels.moment_segment_sum(
+        p, c, C, site="fuse"), pay, cell)
+    assert surfel_kernels.launches["fuse_batched"] == before + 1
+    for b in range(B):
+        one = surfel_kernels.moment_segment_sum(pay[b], cell[b], C,
+                                                site="fuse")
+        assert torch.equal(got[b], one)
+
+
+def _batched_exchange_args(dtype, flags, row_major=False):
+    g = torch.Generator().manual_seed(len(flags))
+    P, S, CF, M = 8, 3, 32, 1000
+    slab = (B, S, CF, M) if row_major else (B, CF, S * M)
+    return [torch.randn((B, P, CF, M), generator=g, dtype=dtype),
+            torch.randint(0, 100, (B, P, M), generator=g, dtype=torch.int32),
+            torch.randn(slab, generator=g, dtype=dtype),
+            torch.randint(100, 200, (B, S * M) if not row_major
+                          else (B, S, M), generator=g, dtype=torch.int32),
+            torch.stack([torch.randperm(P, generator=g)[:S]
+                         for _ in range(B)]).to(torch.int32),
+            torch.stack([torch.randperm(P, generator=g)[:S]
+                         for _ in range(B)]).to(torch.int32),
+            torch.tensor(flags, dtype=torch.int32)]
+
+
+@pytest.mark.parametrize("row_major", [False, True], ids=["ff", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_exchange_matches_plain(cuda, dtype, row_major):
+    """K7 (ff layout) and batched K10 (row-major): each instance on its own
+    flag, exactly as the plain versions."""
+    fn = (atlas_kernels.conditional_slab_exchange if row_major
+          else atlas_kernels.conditional_slab_exchange_ff)
+    key = "exchange_batched" if row_major else "exchange_ff_batched"
+    args = _batched_exchange_args(dtype, [1, 0, 1, 1], row_major)
+    want = [a.clone() for a in args]
+    _vmapped(fn, *want)                                  # plain, per instance
+    got = [a.to(cuda) for a in args]
+    before = atlas_kernels.launches[key]
+    _vmapped(fn, *got)
+    assert atlas_kernels.launches[key] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("refresh", [0, 1])
+def test_row_major_exchange_kernel_matches_plain(cuda, refresh):
+    """K10, one instance."""
+    args = [a[0] for a in _batched_exchange_args(torch.float32, [refresh],
+                                                 row_major=True)]
+    want = atlas_kernels.conditional_slab_exchange(
+        *[a.clone() for a in args[:-1]], args[-1])
+    got = atlas_kernels.conditional_slab_exchange(
+        *[a.to(cuda) for a in args[:-1]], args[-1].to(cuda))
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_page_io_kernels_match_plain(cuda, dtype):
+    """K6 gather and write-back, batched and one instance, exactly."""
+    g = torch.Generator().manual_seed(5)
+    CF, S, M, P = 32, 7, 1024, 128
+    ff = torch.randn((B, CF, S * M), generator=g, dtype=dtype)
+    offs = (torch.arange(S) * M
+            + torch.randint(0, M // P, (B, S), generator=g) * P)
+    upd = torch.randn((B, CF, S * P), generator=g, dtype=dtype)
+    want_g = _vmapped(lambda f, o: atlas_kernels.page_gather_ff(f, o, P),
+                      ff, offs)
+    got_g = _vmapped(lambda f, o: atlas_kernels.page_gather_ff(f, o, P),
+                     ff.to(cuda), offs.to(cuda))
+    assert torch.equal(got_g.cpu(), want_g)
+    assert torch.equal(atlas_kernels.page_gather_ff(
+        ff[1].to(cuda), offs[1].to(cuda), P).cpu(), want_g[1])
+    want_w = ff.clone()
+    _vmapped(lambda f, o, u: atlas_kernels.page_writeback_ff(f, o, u, P),
+             want_w, offs, upd)
+    got_w = ff.to(cuda)
+    before = atlas_kernels.launches["page_writeback"]
+    _vmapped(lambda f, o, u: atlas_kernels.page_writeback_ff(f, o, u, P),
+             got_w, offs.to(cuda), upd.to(cuda))
+    assert atlas_kernels.launches["page_writeback"] == before + 1
+    assert torch.equal(got_w.cpu(), want_w)
+    one = ff[2].to(cuda)
+    atlas_kernels.page_writeback_ff(one, offs[2].to(cuda), upd[2].to(cuda), P)
+    assert torch.equal(one.cpu(), want_w[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_belief_kernels_are_the_single_kernels(cuda, dtype):
+    """K7 of K1/K2: one launch, one block per instance; each instance's
+    outputs equal the one-instance launch's bit for bit (one operand
+    shared by every instance)."""
+    cfg = GCConfig.tpu()
+    pe = [torch.stack(xs).to(cuda, dtype) for xs in zip(
+        *[_pe_operands(s, 0.0) for s in range(B)])]
+    before = belief_kernels.launches["predict_evidence_batched"]
+    got = _vmapped(lambda *a: belief_kernels.predict_evidence_packed(cfg, *a),
+                   *pe)
+    assert belief_kernels.launches["predict_evidence_batched"] == before + 1
+    for b in range(B):
+        one = belief_kernels.predict_evidence_packed(cfg, *[t[b] for t in pe])
+        assert all(torch.equal(x[b], y) for x, y in zip(got, one))
+    tail = [torch.stack(xs).to(cuda, dtype) for xs in zip(
+        *[_tail_operands(s) for s in range(B)])]
+    tail[10] = tail[10][0]                                # shared pnu
+    dims = tuple(None if i == 10 else 0 for i in range(len(tail)))
+    got = _vmapped(lambda *a: belief_kernels.scalar_tail_packed(cfg, *a),
+                   *tail, in_dims=dims)
+    for b in range(B):
+        one = belief_kernels.scalar_tail_packed(cfg, *[
+            t if i == 10 else t[b] for i, t in enumerate(tail)])
+        assert all(torch.equal(x[b], y) for x, y in zip(got, one))
+
+
+def test_batched_replay_matches_single_replays_on_the_card(cuda):
+    """The small slice config, f64, two instances: the batched replay on the
+    card against each instance's single replay on the card."""
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.parallel import replicas
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+    cfg = GCConfig.small(k_hyp=1, view_page=64, view_refresh_every=5,
+                         merge_at_chunk=True, approx_topk=True,
+                         select_bf16=True, surfel_moment_kernel=True,
+                         fuse_moment_kernel=True, belief_kernel=True,
+                         camera_fuse_geom_scale=0.0, insert_page_dense=True)
+    dss = [simulate(cfg, n_scans=10, seed=s, odom_drift_vel_scale=1.03,
+                    odom_drift_yaw_rate=0.01) for s in (3, 4)]
+    mesh = replicas.make_mesh([cuda])
+    states = replicas.init_states_batched(
+        cfg, 2, anchors0=[d.gt_poses[0] for d in dss],
+        t0=[float(d.gt_stamps[0]) - 0.1 for d in dss], mesh=mesh)
+    scans = replicas.shard_scan_inputs(replicas.stack_instances(
+        [to_scan_inputs(d, cfg, device=cuda) for d in dss]), mesh)
+    _, (out,) = replicas.batched_replay(cfg, mesh)(states, scans)
+    for i, d in enumerate(dss):
+        st = init_state(cfg, anchor0=d.gt_poses[0],
+                        t0=float(d.gt_stamps[0]) - 0.1, device=cuda)
+        _, one = replay(st, to_scan_inputs(d, cfg, device=cuda), cfg,
+                        device=cuda)
+        assert (out.pose[i] - one.pose).abs().max().item() < 1e-8

@@ -129,3 +129,165 @@ def test_wrappers_raise_on_other_devices():
             torch.zeros(1, dtype=torch.int32, device=meta),
             torch.zeros(1, dtype=torch.int32, device=meta),
             torch.zeros((), dtype=torch.int32, device=meta))
+
+
+# ---------------------------------------------------------------------------
+# The instance-batched forms: each kernel's batching rule (its plain version
+# per instance on the CPU) under torch.func.vmap, against the JAX function
+# under jax.vmap. Copies are exact; K3/K4 keep their single-instance
+# tolerances.
+# ---------------------------------------------------------------------------
+
+B = 3
+
+
+def _vmap_np(fn, *arrays):
+    """``torch.func.vmap(fn)`` on numpy inputs; numpy outputs."""
+    out = torch.func.vmap(fn)(*[torch.from_numpy(a.copy()) for a in arrays])
+    if isinstance(out, torch.Tensor):
+        return out.numpy()
+    return [o.numpy() for o in out]
+
+
+def _batched_exchange_inputs(refresh_flags):
+    per = [_exchange_inputs(10 + b) for b in range(len(refresh_flags))]
+    rng = np.random.default_rng(1)
+    for b, p in enumerate(per):                       # per-instance slots
+        p[4][:] = rng.permutation(8)[:3]
+        p[5][:] = rng.permutation(8)[:3]
+    stacked = [np.stack(xs) for xs in zip(*per)]
+    return stacked + [np.asarray(refresh_flags, np.int32)]
+
+
+def test_batched_exchange_ff_matches_jax_vmap():
+    """K7: each instance predicated on its own flag."""
+    args = _batched_exchange_inputs([1, 0, 1])
+    want = jax.vmap(lambda *a: j_atlas.conditional_slab_exchange_ff(
+        *a, use_kernel=False))(*[jnp.asarray(x) for x in args])
+    got = _vmap_np(atlas_kernels.conditional_slab_exchange_ff, *args)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    # the instance with its flag clear is untouched
+    np.testing.assert_array_equal(got[2][1], args[2][1])
+
+
+def _row_major(args):
+    """ff (.., CF, S*M) / fp (.., S*M) -> slabs (.., S, CF, M) / (.., S, M)."""
+    pool_f, pool_p, ff, fp = args[:4]
+    M = pool_f.shape[-1]
+    CF, SM = ff.shape[-2:]
+    S = SM // M
+    lead = ff.shape[:-2]
+    slab_f = np.ascontiguousarray(np.moveaxis(
+        ff.reshape(lead + (CF, S, M)), -2, -3))
+    return [pool_f, pool_p, slab_f, fp.reshape(lead + (S, M))] + list(args[4:])
+
+
+@pytest.mark.parametrize("refresh", [0, 1])
+def test_row_major_exchange_matches_jax(refresh):
+    """K10 (the row-major exchange), one instance."""
+    args = _row_major(list(_exchange_inputs(refresh)))
+    want = j_atlas.conditional_slab_exchange(
+        *[jnp.asarray(x) for x in args], jnp.int32(refresh),
+        use_kernel=False)
+    got = atlas_kernels.conditional_slab_exchange(
+        *[torch.from_numpy(x.copy()) for x in args],
+        torch.tensor(refresh, dtype=torch.int32))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_batched_row_major_exchange_matches_jax_vmap():
+    """K10 batched: each instance on its own flag."""
+    args = _row_major(_batched_exchange_inputs([0, 1, 1]))
+    want = jax.vmap(lambda *a: j_atlas.conditional_slab_exchange(
+        *a, use_kernel=False))(*[jnp.asarray(x) for x in args])
+    got = _vmap_np(atlas_kernels.conditional_slab_exchange, *args)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def _page_inputs(seed, CF=8, S=3, M=512, P=128):
+    rng = np.random.default_rng(seed)
+    ff = rng.normal(size=(B, CF, S * M))
+    offs = (np.arange(S) * M + rng.integers(0, M // P, (B, S)) * P)
+    upd = rng.normal(size=(B, CF, S * P))
+    return ff, offs.astype(np.int32), upd, P
+
+
+def test_batched_page_gather_matches_jax_vmap():
+    """K6 gather: per-instance page offsets."""
+    ff, offs, _, P = _page_inputs(0)
+    want = jax.vmap(lambda f, o: j_atlas.page_gather_ff(f, o, P))(
+        jnp.asarray(ff), jnp.asarray(offs))
+    got = _vmap_np(lambda f, o: atlas_kernels.page_gather_ff(f, o, P), ff,
+                   offs)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    one = atlas_kernels.page_gather_ff(torch.from_numpy(ff[1]),
+                                       torch.from_numpy(offs[1]), P)
+    np.testing.assert_array_equal(one.numpy(), got[1])
+
+
+def test_batched_page_writeback_matches_jax_vmap():
+    """K6 write-back: in place, per-instance offsets."""
+    ff, offs, upd, P = _page_inputs(1)
+    want = jax.vmap(lambda f, o, u: j_atlas.page_writeback_ff(f, o, u, P))(
+        jnp.asarray(ff), jnp.asarray(offs), jnp.asarray(upd))
+    ff_t = torch.from_numpy(ff.copy())
+    torch.func.vmap(lambda f, o, u: atlas_kernels.page_writeback_ff(
+        f, o, u, P))(ff_t, torch.from_numpy(offs), torch.from_numpy(upd))
+    np.testing.assert_array_equal(ff_t.numpy(), np.asarray(want))
+    one = torch.from_numpy(ff[2].copy())
+    atlas_kernels.page_writeback_ff(one, torch.from_numpy(offs[2]),
+                                    torch.from_numpy(upd[2]), P)
+    np.testing.assert_array_equal(one.numpy(), ff_t[2].numpy())
+
+
+def test_batched_sinkhorn_matches_jax_vmap():
+    """K3 batched, f64 at the single-instance tolerance (1e-9)."""
+    K, N = 4, 80
+    per = [_sinkhorn_inputs(b, K, N, np.float64)[:2] for b in range(B)]
+    logKT, log_a = (np.stack(x) for x in zip(*per))
+    kw = dict(n_iter=10, ua=UA, vb=VB, log_b=-math.log(K))
+    want = jax.vmap(lambda lk, la: j_assoc.sinkhorn_piT(
+        lk, la, **kw, interpret=True))(jnp.asarray(logKT), jnp.asarray(log_a))
+    got = _vmap_np(lambda lk, la: assoc_kernels.sinkhorn_piT(lk, la, **kw),
+                   logKT, log_a)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-12)
+
+
+def test_batched_moment_matches_jax_vmap():
+    """K4 batched, at the single-instance bound of the bf16x2 split."""
+    F, N, C = 11, 256, 512
+    rng = np.random.default_rng(3)
+    payload = (rng.normal(size=(B, F, N)) * 0.2).astype(np.float32)
+    cell = rng.integers(0, C, (B, N)).astype(np.int32)
+    want = np.asarray(jax.vmap(lambda p, c: j_surf.moment_segment_sum(
+        p, c, C, interpret=True))(jnp.asarray(payload), jnp.asarray(cell)))
+    got = _vmap_np(lambda p, c: surfel_kernels.moment_segment_sum(
+        p, c, C, site="fuse"), payload, cell)
+    assert np.abs(got - want).max() < 5e-5 * np.abs(want).max()
+
+
+def test_batching_rules_launch_nothing_on_cpu():
+    """Under vmap the CPU tensors take the plain versions: no launches."""
+    before = (dict(assoc_kernels.launches), dict(surfel_kernels.launches),
+              dict(atlas_kernels.launches))
+    ff, offs, upd, P = _page_inputs(2)
+    _vmap_np(lambda f, o: atlas_kernels.page_gather_ff(f, o, P), ff, offs)
+    _vmap_np(atlas_kernels.conditional_slab_exchange_ff,
+             *_batched_exchange_inputs([1, 1, 0]))
+    assert before == (dict(assoc_kernels.launches),
+                      dict(surfel_kernels.launches),
+                      dict(atlas_kernels.launches))
+
+
+def test_batching_rules_refuse_an_unbatched_written_operand():
+    """An op that writes its operand in place needs that operand batched:
+    B instances cannot write one shared pool."""
+    args = _batched_exchange_inputs([1, 1, 1])
+    shared_pool = torch.from_numpy(args[0][0].copy())
+    with pytest.raises(ValueError, match="instance axis"):
+        torch.func.vmap(lambda *a: atlas_kernels.conditional_slab_exchange_ff(
+            shared_pool, *a), in_dims=0)(
+                *[torch.from_numpy(x.copy()) for x in args[1:]])
