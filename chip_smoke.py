@@ -31,12 +31,25 @@ Phases (any failure raises and the script exits non-zero without a result):
      beat it), each kernel's launch count (one per batched call, not B),
      host syncs, the vmap fallback warnings; instance 0 against the
      single-instance ``GCConfig.tpu(insert_page_dense=True)`` replay of the
-     same data; then two 20-scan batched reruns with identical poses.
+     same data; then two 20-scan batched reruns with identical poses;
+  7. the selection path: ``GCConfig.tpu(select_kernel=True)`` (K9 in the
+     association) over phase 4's scans after a one-chunk warm-up: ms/scan,
+     ATE against odometry and against phase 4's run without K9, K9's
+     launches (one per scan) and host syncs (none);
+  8. the map path: replay ``GCConfig.tpu()`` over 100 scans and flush the
+     slabs; checkpoint, restore, and replay 20 more scans from the live and
+     the restored state (identical poses); write the splat export, the
+     runtime manifest and the diagnostics and read them back; render the
+     pool's top 16,384 primitives at 960 x 720 with K = 64 under a top-down
+     camera through K8 (finite, drawn pixels, positive depth where covered,
+     one K8 launch); push them through the 15 BEV projections.
 Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched and
-K7), K6 and K10 against their plain versions.
+K7), K6 and K10, and K8 (960 x 720, K = 64) and K9 (N = 1536, V = 5376,
+k = 8, also batched at B = 8) against their plain versions.
 Then it prints the ``kernels`` JSON line (launches of the one-instance
 kernels from the ``GCConfig.tpu()`` replay of phase 4, of the batched ones
-from phase 6) and, last, the ``ok`` line.
+from phase 6, of K9 from phase 7 and of K8 from phase 8) and, last, the
+``ok`` line.
 The script imports nothing of JAX and nothing of ``fl_slam_tpu``.
 """
 
@@ -558,6 +571,183 @@ def check_batched_kernels() -> list:
     return rows
 
 
+def _select_work(N: int, V: int, k: int, B: int = 1):
+    """(bytes, operations) of K9: a (N, 16) and b (16, V) read once, the
+    (N, k) values and indices written once; 16 products and 15 sums and a
+    negation per score, 5 comparisons per score for the chunk's top 2, 3
+    per survivor lane and pick for the top k."""
+    P = -(-2 * (V // 128) // 128) * 128
+    return (B * (N * 16 + 16 * V + 2 * N * k) * 4,
+            B * (N * V * (32 + 5) + N * P * k * 3))
+
+
+def _composite_work(T: int, K: int):
+    """(bytes, operations) of K8: the (T, K, 16) rows read once, 4 planes
+    of T x 1024 pixels written once; 26 f32 operations per pixel and splat
+    (the exponent counted as one)."""
+    return (T * K * 16 + 4 * T * 1024) * 4, T * 1024 * K * 26
+
+
+def _seeded_scene(n: int, g, dev):
+    """``n`` splats spread over a 16 x 12 m patch at ground level."""
+    import torch
+    pos = torch.randn((n, 3), generator=g, device=dev) * torch.tensor(
+        [8.0, 6.0, 0.5], device=dev)
+    A = torch.randn((n, 3, 3), generator=g, device=dev)
+    Lam = A @ A.transpose(1, 2) * 20.0 + 30.0 * torch.eye(3, device=dev)
+    etas = torch.randn((n, 3, 3), generator=g, device=dev) * 4.0
+    col = torch.rand((n, 3), generator=g, device=dev)
+    w = torch.rand((n,), generator=g, device=dev) * 3.0
+    val = torch.rand((n,), generator=g, device=dev) > 0.05
+    return pos, Lam, etas, col, w, val
+
+
+def check_render_select_kernels() -> list:
+    """Phase 3, K8 and K9 at the shapes of their paths: K8 on the 720 tiles
+    of a 960 x 720 render with K = 64 (a seeded 16,384-splat scene under a
+    top-down camera), K9 at N = 1536, V = 5376, k = 8 (f32 and f64, seeded,
+    with duplicated view columns and measurement rows: exact ties) and
+    batched at B = N_INST. The kernels round as their plain versions do
+    (-fmad=false), so K9 is held exactly and K8 to 1e-6 on the colors (the
+    kernel's expf against torch's exp) and 1e-5 relative on covered depth."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.ops import assoc_kernels as ak
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    from fl_slam_tpu_torch.render.splat import bev_camera
+
+    cfg = GCConfig.tpu()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = []
+
+    # K8: the tile parameters of a full-width render.
+    scene = _seeded_scene(16384, g, dev)
+    cam = bev_camera(scene[0].cpu().numpy(), 960, 720)
+    params, n_ty, n_tx = sk.tile_params(*scene, cam)
+    T, K = params.shape[0], params.shape[1]
+    got = sk.composite(params, n_ty, n_tx)
+    want = sk.composite_plain(params, n_ty, n_tx)
+    cover = sk.coverage_plain(params, n_ty, n_tx)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got[:3], want[:3]))
+    held = cover > 1e-6
+    zerr = ((got[3][held] - want[3][held]).abs()
+            / want[3][held].abs().clamp(min=1e-30)).max().item()
+    if not (err <= 1e-6 and zerr <= 1e-5 and held.any()
+            and all(bool(torch.isfinite(a).all()) for a in got)):
+        raise AssertionError(f"K8 composite mismatch: colors {err} (1e-6), "
+                             f"depth {zerr} relative (1e-5)")
+    bound, by = _bound_ms(*_composite_work(T, K))
+    rows.append(dict(
+        name="splat_composite", launch_key="splat_composite", route="cuda",
+        source="fl_slam_tpu_torch/csrc/splat_composite.cu",
+        replaces="fl_slam_tpu/render/splat_pallas.py:182", site="render",
+        max_abs_err=err, tolerance=1e-6, depth_max_rel_err=zerr,
+        depth_tolerance=1e-5,
+        ms=_time_ms(lambda: sk.composite(params, n_ty, n_tx)),
+        device_ms=_device_ms(lambda: sk.composite(params, n_ty, n_tx)),
+        plain_ms=_time_ms(lambda: sk.composite_plain(params, n_ty, n_tx),
+                          reps=5),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"960x720: {T} tiles of 8x128, K={K}, f32"))
+    del scene, params, got, want, cover
+
+    # K9 at GCConfig.tpu()'s selection shape.
+    N, V, k = cfg.n_meas, cfg.n_active_tiles * cfg.m_tile_view, cfg.k_assoc
+    kw = dict(k=k, cost_beta=0.5,
+              recency_scale=cfg.ot_epsilon * cfg.recency_decay_lambda)
+    checks, timed = [], None
+    for dt in (torch.float32, torch.float64):
+        mp = torch.randn((N, 3), generator=g, device=dev, dtype=dt) * 5
+        md = torch.nn.functional.normalize(torch.randn(
+            (N, 3), generator=g, device=dev, dtype=dt), dim=1)
+        mk = torch.rand((N,), generator=g, device=dev, dtype=dt)
+        mk[::7] = 0.0
+        pk = torch.zeros((V, 19), device=dev, dtype=dt)
+        pk[:, 0:3] = torch.randn((V, 3), generator=g, device=dev,
+                                 dtype=dt) * 5
+        pk[:, 3:6] = torch.nn.functional.normalize(torch.randn(
+            (V, 3), generator=g, device=dev, dtype=dt), dim=1)
+        pk[:, 6] = torch.rand((V,), generator=g, device=dev, dtype=dt)
+        pk[::5, 6] = 0.0
+        pk[:, 14] = (torch.rand((V,), generator=g, device=dev) > 0.1).to(dt)
+        pk[:, 15] = torch.randint(0, 50, (V,), generator=g,
+                                  device=dev).to(dt)
+        pk[100:228] = pk[V - 228:V - 100]     # duplicated view columns
+        mp[10:20] = mp[9]                     # and measurement rows
+        seq = torch.tensor(60, dtype=torch.int32, device=dev)
+        v1, i1 = ak.select_candidates(mp, md, mk, pk, seq, **kw)
+        v0, i0 = ak.select_candidates_plain(mp, md, mk, pk, seq, **kw)
+        torch.cuda.synchronize()
+        verr = (v1 - v0).abs().max().item()
+        mism = int((i1 != i0).sum().item())
+        dname = str(dt).replace("torch.", "")
+        checks.append(dict(dtype=dname, max_abs_err=verr,
+                           index_mismatches=mism))
+        if verr != 0.0 or mism:
+            raise AssertionError(f"K9 select ({dname}) mismatch: values "
+                                 f"{verr}, {mism} indices")
+        if dt == torch.float32:
+            timed = ak.select_operands(mp, md, mk, pk, seq,
+                                       cost_beta=kw["cost_beta"],
+                                       recency_scale=kw["recency_scale"])
+            sel = (mp, md, mk, pk, seq)
+    # Timed on the factors, as the kernel sees them; with_factors_ms adds
+    # the ~20 torch ops that build them (the whole select_candidates call).
+    a, b = timed
+    bound, by = _bound_ms(*_select_work(N, V, k))
+    rows.append(dict(
+        name="select_candidates", launch_key="select_candidates",
+        route="cuda", source="fl_slam_tpu_torch/csrc/select.cu",
+        replaces="fl_slam_tpu/ops/assoc_kernels.py:255",
+        also_replaces="fl_slam_tpu/ops/assoc_kernels.py:272 (stage 2, "
+                      "fused)", site="association (select_kernel)",
+        max_abs_err=checks[0]["max_abs_err"], tolerance=0.0,
+        ms=_time_ms(lambda: ak._select(a, b, k)),
+        device_ms=_device_ms(lambda: ak._select(a, b, k)),
+        with_factors_ms=_time_ms(lambda: ak.select_candidates(*sel, **kw)),
+        plain_ms=_time_ms(lambda: ak.select_topk_plain(a, b, k)),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"a ({N}, 16), b (16, {V}), k={k}, f32", checks=checks))
+
+    # K9 batched: one launch for N_INST instances (rows rolled per instance).
+    B = N_INST
+    A = torch.stack([a.roll(7 * i, 0) for i in range(B)])
+    Bm = torch.stack([b.roll(128 * i, 1) for i in range(B)])
+
+    def k9b():
+        return torch.func.vmap(lambda x, y: ak._select(x, y, k))(A, Bm)
+
+    vb, ib = k9b()
+    one_v, one_i = ak._select(A[B - 1], Bm[B - 1], k)
+    if not (torch.equal(vb[B - 1], one_v) and torch.equal(ib[B - 1], one_i)):
+        raise AssertionError("K9 batched: an instance differs from the "
+                             "one-instance launch")
+    errs = []
+    for i in range(B):
+        pv, pi = ak.select_topk_plain(A[i], Bm[i], k)
+        errs.append(max((vb[i] - pv).abs().max().item(),
+                        float((ib[i] != pi).sum().item())))
+    if max(errs) != 0.0:
+        raise AssertionError(f"K9 batched mismatch {max(errs)}")
+    bound, by = _bound_ms(*_select_work(N, V, k, B))
+    rows.append(dict(
+        name="select_candidates[batched]",
+        launch_key="select_candidates[batched]", route="cuda",
+        source="fl_slam_tpu_torch/csrc/select.cu",
+        replaces="fl_slam_tpu/ops/assoc_kernels.py:255",
+        also_replaces="fl_slam_tpu/ops/assoc_kernels.py:272 (stage 2, "
+                      "fused)", site=f"B={B}", max_abs_err=max(errs),
+        tolerance=0.0, ms=_time_ms(k9b), device_ms=_device_ms(k9b),
+        plain_ms=_time_ms(lambda: [ak.select_topk_plain(A[i], Bm[i], k)
+                                   for i in range(B)], reps=3),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"a ({B}, {N}, 16), b ({B}, 16, {V}), k={k}, f32"))
+    del A, Bm, vb, ib
+    return rows
+
+
 def _seeded_belief_operands(seed: int):
     """K1's 12 and K2's 18 operands (f64, on the CPU): SPD information and
     covariances, unit anchors, the packed vector at the path's magnitudes."""
@@ -721,9 +911,11 @@ def check_belief_kernels() -> list:
 def _counters():
     from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
                                        surfel_kernels)
+    from fl_slam_tpu_torch.render import splat_kernels
     from fl_slam_tpu_torch.structures import atlas_kernels
     return (assoc_kernels.launches, surfel_kernels.launches,
-            belief_kernels.launches, atlas_kernels.launches)
+            belief_kernels.launches, atlas_kernels.launches,
+            splat_kernels.launches)
 
 
 # Kernel row name -> (counter dict index, key).
@@ -744,11 +936,16 @@ _COUNT_KEYS = {
     "page_writeback_ff": (3, "page_writeback"),
     "conditional_slab_exchange": (3, "exchange"),
     "conditional_slab_exchange[batched]": (3, "exchange_batched"),
+    "select_candidates": (0, "select_candidates"),
+    "select_candidates[batched]": (0, "select_candidates_batched"),
+    "splat_composite": (4, "splat_composite"),
 }
 
 _SINGLE_PATH = ("predict_evidence", "scalar_tail", "sinkhorn_piT",
                 "moment_segment_sum[surfels]", "moment_segment_sum[fuse]",
                 "conditional_slab_exchange_ff")
+_SELECT_PATH = ("select_candidates", "select_candidates[batched]")
+_RENDER_PATH = ("splat_composite",)
 
 
 def _reset_counts():
@@ -824,7 +1021,7 @@ def run_replay(cfg, label: str, want: dict, ds, scans) -> dict:
         odom_ate_rot_deg=m_odom["rot_deg"]["rmse"],
         launches=counts, host_syncs_in_replay=syncs)
     print("replay: " + json.dumps(result), flush=True)
-    return counts
+    return result
 
 
 def main_path() -> dict:
@@ -846,7 +1043,7 @@ def main_path() -> dict:
                 "moment_segment_sum[surfels]": N_SCANS,
                 "moment_segment_sum[fuse]": N_SCANS,
                 "conditional_slab_exchange_ff": N_SCANS // R}
-    counts = run_replay(cfg, "GCConfig.tpu()", dict(
+    main = run_replay(cfg, "GCConfig.tpu()", dict(
         per_scan, predict_evidence=N_SCANS, scalar_tail=N_SCANS), ds, scans)
     run_replay(GCConfig.tpu(belief_kernel=False),
                "GCConfig.tpu(belief_kernel=False)",
@@ -864,7 +1061,7 @@ def main_path() -> dict:
           f"{same}", flush=True)
     if not same:
         raise AssertionError("reruns differ")
-    return counts
+    return main, ds, scans
 
 
 def _first_scans(shards, n):
@@ -994,6 +1191,159 @@ def batched_path() -> dict:
     return counts
 
 
+def select_path(main: dict, ds, scans) -> dict:
+    """Phase 7: ``GCConfig.tpu(select_kernel=True)`` over the same scans as
+    phase 4 (K9 in the association), after a one-chunk warm-up; ATE against
+    odometry and against phase 4's run without the kernel."""
+    from fl_slam_tpu_torch.config import GCConfig
+
+    cfg = GCConfig.tpu(select_kernel=True)
+    R = cfg.view_refresh_every
+    want = {"predict_evidence": N_SCANS, "scalar_tail": N_SCANS,
+            "sinkhorn_piT": N_SCANS, "moment_segment_sum[surfels]": N_SCANS,
+            "moment_segment_sum[fuse]": N_SCANS,
+            "conditional_slab_exchange_ff": N_SCANS // R,
+            "select_candidates": N_SCANS}
+    res = run_replay(cfg, "GCConfig.tpu(select_kernel=True)", want, ds,
+                     scans)
+    print("select: " + json.dumps(dict(
+        ms_per_scan=res["ms_per_scan"],
+        ms_per_scan_without_k9=main["ms_per_scan"],
+        ate_trans_m=res["ate_trans_m"], ate_rot_deg=res["ate_rot_deg"],
+        ate_without_k9=[main["ate_trans_m"], main["ate_rot_deg"]],
+        odom_ate=[res["odom_ate_trans_m"], res["odom_ate_rot_deg"]],
+        k9_launches=res["launches"]["select_candidates"],
+        host_syncs_in_replay=res["host_syncs_in_replay"])), flush=True)
+    return res["launches"]
+
+
+def render_path() -> dict:
+    """Phase 8: the map's render, export and checkpoint path. Replay
+    ``GCConfig.tpu()`` over N_SCANS drifting-odometry scans and flush the
+    slabs; checkpoint, restore, and replay N_RERUN more scans from the live
+    and from the restored state (identical poses); write and read back the
+    splat export, the runtime manifest and the diagnostics; take the top
+    16,384 primitives of the pool and render them at 960 x 720 with K = 64
+    (the map viewer's widths) under a top-down camera through K8, once,
+    counted; push them through the 15 BEV projections."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch import checkpoint
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.pipeline import flush_slabs, init_state, replay
+    from fl_slam_tpu_torch.render import bev, export, splat, splat_kernels
+
+    cfg = GCConfig.tpu()
+    ds = simulate(cfg, n_scans=N_SCANS + N_RERUN, seed=SEED,
+                  odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+    scans = to_scan_inputs(ds, cfg)
+
+    def fresh():
+        return init_state(cfg, anchor0=ds.gt_poses[0],
+                          t0=float(ds.gt_stamps[0]) - 0.1)
+
+    state, out = replay(fresh(), _slice(scans, N_SCANS), cfg)
+    state = flush_slabs(state)
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # Checkpoint and resume.
+        path = os.path.join(tmp, "state.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_state(path, state, cfg=cfg)
+        restored = checkpoint.load_state(path, fresh(), cfg=cfg)
+        torch.cuda.synchronize()
+        result["checkpoint_s"] = time.perf_counter() - t0
+        result["checkpoint_bytes"] = os.path.getsize(path)
+        same_leaves = all(
+            torch.equal(a, b) for a, b in zip(checkpoint._leaves(restored),
+                                              checkpoint._leaves(state)))
+        tail = type(scans)(*[f[N_SCANS:] for f in scans])
+        # The export reads the live state before the resume replays
+        # consume both (replay updates its state in place).
+        t0 = time.perf_counter()
+        arrays = export.save_splat_export(
+            os.path.join(tmp, "splat_export.npz"), state.atlas, cfg,
+            poses=out.pose, stamps=out.stamp)
+        export.save_runtime_manifest(os.path.join(tmp, "manifest.json"),
+                                     cfg, extra={"scans": N_SCANS})
+        export.save_diagnostics(os.path.join(tmp, "diagnostics.npz"),
+                                out.certs, stamps=out.stamp)
+        result["export_s"] = time.perf_counter() - t0
+        back = np.load(os.path.join(tmp, "splat_export.npz"))
+        manifest = json.load(open(os.path.join(tmp, "manifest.json")))
+        diag = np.load(os.path.join(tmp, "diagnostics.npz"))
+        export_ok = (set(back.files) == set(arrays)
+                     and all(np.array_equal(back[k], arrays[k])
+                             for k in arrays)
+                     and back["positions"].shape[0] > 0
+                     and np.isfinite(back["positions"]).all()
+                     and back["trajectory"].shape == (N_SCANS, 6)
+                     and manifest["backend"] == "cuda"
+                     and manifest["device_count"] == torch.cuda.device_count()
+                     and manifest["config"]["n_tiles_pool"]
+                     == cfg.n_tiles_pool
+                     and set(diag.files) == {k.replace("/", "_")
+                                             for k in out.certs} | {"stamps"})
+        result.update(export_prims=int(back["positions"].shape[0]),
+                      export_ok=bool(export_ok))
+
+        # The render: top 16,384 of the pool through K8 at 960 x 720.
+        prims = splat.atlas_primitives(state.atlas, cfg, 16384)
+        cam = splat.bev_camera(prims[0][prims[5]].cpu().numpy(), 960, 720)
+        splat_kernels.render_tiled(*prims, cam)              # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        img, depth = splat_kernels.render_tiled(*prims, cam)
+        torch.cuda.synchronize()
+        result["render_ms"] = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        params, n_ty, n_tx = splat_kernels.tile_params(*prims, cam)
+        cover = splat_kernels.coverage_plain(params, n_ty, n_tx)
+        cover = cover.reshape(n_ty, n_tx, 8, 128).permute(0, 2, 1, 3)
+        cover = cover.reshape(n_ty * 8, n_tx * 128)[:720, :960]
+        drawn = (img < 0.99).any(-1)
+        render_ok = (img.shape == (720, 960, 3)
+                     and bool(torch.isfinite(img).all())
+                     and bool(torch.isfinite(depth).all())
+                     and bool(drawn.any())
+                     and bool((depth[cover > 1e-6] > 0).all())
+                     and counts["splat_composite"] == 1)
+        result.update(render_prims=int(prims[5].sum().item()),
+                      tiles=n_ty * n_tx, splats_per_tile=params.shape[1],
+                      drawn_pixel_share=drawn.float().mean().item(),
+                      covered_pixel_share=(cover > 1e-6).float().mean()
+                      .item(),
+                      k8_launches=counts["splat_composite"],
+                      render_ok=render_ok)
+
+        # BEV15 through atlas_bev.
+        bev_ok = True
+        n = min(16384, cfg.n_tiles_pool * cfg.m_tile)
+        for P in bev.bev15_projections():
+            mu2, S2, w, rgb = bev.atlas_bev(state.atlas, cfg, P)
+            det = S2[:, 0, 0] * S2[:, 1, 1] - S2[:, 0, 1] * S2[:, 1, 0]
+            bev_ok &= (mu2.shape == (n, 2) and S2.shape == (n, 2, 2)
+                       and bool(torch.isfinite(mu2).all())
+                       and bool((det[w > 0] > 0).all()))
+        result["bev15_ok"] = bool(bev_ok)
+
+        # Resume: N_RERUN more scans from the live and the restored state.
+        p_live = replay(state, tail, cfg)[1].pose
+        p_res = replay(restored, tail, cfg)[1].pose
+        result["resume_identical"] = bool(same_leaves
+                                          and torch.equal(p_live, p_res))
+    print("render: " + json.dumps(result), flush=True)
+    for key in ("export_ok", "render_ok", "bev15_ok", "resume_identical"):
+        if not result[key]:
+            raise AssertionError(f"render path: {key} failed: {result}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1013,14 +1363,22 @@ def main() -> int:
           f"fl_slam_tpu_torch/csrc in {seconds:.1f} s", flush=True)
     print(_card_line(), flush=True)
 
-    rows = check_kernels() + check_belief_kernels() + check_batched_kernels()
-    counts = main_path()
+    rows = (check_kernels() + check_belief_kernels()
+            + check_batched_kernels() + check_render_select_kernels())
+    main_run, ds, scans = main_path()
     bcounts = batched_path()
+    scounts = select_path(main_run, ds, scans)
+    del ds, scans
+    rcounts = render_path()
     for row in rows:
         key = row.pop("launch_key")
         # One-instance kernels count in the GCConfig.tpu() replay of phase
-        # 4; the batched ones (and K6, K10) in the batched replay of phase 6.
-        row["launches"] = (counts[key] if key in _SINGLE_PATH
+        # 4; the batched ones (and K6, K10) in the batched replay of phase
+        # 6; K9 in the select_kernel replay of phase 7; K8 in the render of
+        # phase 8.
+        row["launches"] = (main_run["launches"][key] if key in _SINGLE_PATH
+                           else scounts[key] if key in _SELECT_PATH
+                           else rcounts[key] if key in _RENDER_PATH
                            else bcounts[key])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -655,9 +655,6 @@ _UNPORTED = (
      "view_page=0 (the per-slot view path) comes with a later slice"),
     (lambda c: c.camera_insert_novelty_floor > 0.0,
      "camera_insert_novelty_floor > 0 comes with the camera slice"),
-    (lambda c: c.select_kernel,
-     "select_kernel=True (fused candidate selection, K9) comes with a later "
-     "slice"),
     (lambda c: not (c.sinkhorn_kernel and c.surfel_moment_kernel
                     and c.fuse_moment_kernel and c.slab_dma_kernel),
      "the port runs its Sinkhorn, moment and slab-exchange kernels always "

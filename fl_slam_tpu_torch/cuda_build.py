@@ -24,15 +24,19 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("sinkhorn", "moment", "slab_exchange", "page_io",
-           "predict_evidence", "scalar_tail")
+           "predict_evidence", "scalar_tail", "splat_composite", "select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # The belief kernels round every product, as their plain versions do: K1's
 # accel-noise moments (M2 - f m1^T - m1 f^T + sw f f^T) cancel to ~1e-3 of
 # their terms, and fused multiply-adds there moved the f32 result 1e-3
-# relative away from the plain version (H100, captured operands).
+# relative away from the plain version (H100, captured operands). K8 and
+# K9 build the same way, so that they round as their plain versions'
+# separate elementwise products and sums do.
 EXTRA_FLAGS = {"predict_evidence": ("-fmad=false",),
-               "scalar_tail": ("-fmad=false",)}
+               "scalar_tail": ("-fmad=false",),
+               "splat_composite": ("-fmad=false",),
+               "select": ("-fmad=false",)}
 
 _LIBS: dict = {}
 

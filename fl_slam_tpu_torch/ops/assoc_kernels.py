@@ -1,15 +1,19 @@
-"""K3, the log-domain unbalanced Sinkhorn fixed point (port of the TPU
-kernel ``fl_slam_tpu/ops/assoc_kernels.py:77`` ``sinkhorn_piT``).
+"""The association kernels: K3, the log-domain unbalanced Sinkhorn fixed
+point (port of the TPU kernel ``fl_slam_tpu/ops/assoc_kernels.py:77``
+``sinkhorn_piT``), and K9, the fused candidate selection (``:255`` stage 1
+and ``:272`` stage 2 of ``select_candidates``).
 
 ``sinkhorn_piT`` is a ``torch.library.custom_op``: it launches the
 hand-written CUDA kernel (``csrc/sinkhorn.cu``, the Pallas kernel's
 finite-cap form) for CUDA tensors and runs the plain version
 (``sinkhorn_piT_plain``, the reference's XLA form with -inf rows) for CPU
 tensors; any other device, or a shape the kernel cannot hold on one SM,
-raises. Its instance-batching rule (``register_vmap``) launches the kernel
-once for all instances under ``torch.func.vmap``, one block each (the
-reference gets that batching from its grid). ``launches`` counts kernel
-launches, one-instance and batched apart.
+raises. ``select_candidates`` builds the proxy cost's two factors in torch
+and hands them to the op behind K9 (``csrc/select.cu``; plain version
+``select_topk_plain``) the same way. Their instance-batching rules
+(``register_vmap``) launch the kernel once for all instances under
+``torch.func.vmap`` (the reference gets that batching from its grid).
+``launches`` counts kernel launches, one-instance and batched apart.
 """
 
 from __future__ import annotations
@@ -110,3 +114,176 @@ def sinkhorn_piT(logKT, log_a, *, n_iter: int, ua: float, vb: float,
         raise ValueError(f"sinkhorn_piT: unsupported device {logKT.device}")
     return _sinkhorn(logKT, log_a, int(n_iter), float(ua), float(vb),
                      float(log_b))
+
+
+# ---------------------------------------------------------------------------
+# K9, the fused candidate selection (port of the TPU kernel
+# ``fl_slam_tpu/ops/assoc_kernels.py:255`` ``select_candidates``, stage 1
+# ``_select_chunk_body`` and stage 2 ``:272`` ``_select_topk_body``).
+# ---------------------------------------------------------------------------
+
+_COST_INVALID_K = 1.0e6
+_CHUNK = 128
+launches.update({"select_candidates": 0, "select_candidates_batched": 0})
+
+
+def select_operands(meas_pos, meas_dir, meas_kappa, view_packed, scan_seq,
+                    *, cost_beta: float, recency_scale: float):
+    """The bilinear factors of the selection proxy cost, ``cost = a @ b``:
+    a (N, 16) = [-2 x | -beta/2 g mu_m | beta/2 g | 1 | |x|^2 | 0...],
+    b (16, V) = [m | gv mu_v | gv | |m|^2 + rec + inval | 1 | 0...]."""
+    dt = meas_pos.dtype
+    N = meas_pos.shape[0]
+    V = view_packed.shape[0]
+    g = (meas_kappa > 0.0).to(dt)[:, None]
+    x2 = torch.sum(meas_pos * meas_pos, -1, keepdim=True)
+    a = torch.cat([-2.0 * meas_pos, (-0.5 * cost_beta) * g * meas_dir,
+                   (0.5 * cost_beta) * g, torch.ones_like(g), x2,
+                   torch.zeros((N, 7), dtype=dt, device=meas_pos.device)], 1)
+    vpos = view_packed[:, 0:3]
+    gv = (view_packed[:, 6] > 0.0).to(dt)
+    m2 = torch.sum(vpos * vpos, -1)
+    rec = recency_scale * torch.clamp(scan_seq.to(dt) - view_packed[:, 15],
+                                      min=0.0)
+    inval = torch.where(view_packed[:, 14] > 0.5, torch.zeros_like(m2),
+                        _COST_INVALID_K)
+    b = torch.cat([vpos.T, view_packed[:, 3:6].T * gv[None, :], gv[None, :],
+                   (m2 + rec + inval)[None, :], torch.ones_like(gv)[None, :],
+                   torch.zeros((7, V), dtype=dt, device=view_packed.device)],
+                  0)
+    return a, b
+
+
+def select_topk_plain(a, b, k: int):
+    """Plain PyTorch version of K9 on the factors: the top-k of
+    s = -(a @ b) per row, by the reference's two stages. The product is a
+    fixed-order sum of the 16 terms (no fused multiply-add), as the kernel
+    takes it. Stage 1 keeps each 128-column chunk's top 2: the lowest
+    column at the chunk max, then (every lane at the max removed) the
+    lowest column at the next value. Stage 2 takes the top k of those
+    survivors, padded with -3e38 to a multiple of 128 lanes (index 0): the
+    lowest index among the lanes at the max, every lane at the max
+    removed. Returns (vals (N, k), idx (N, k) int32)."""
+    N, V = a.shape[0], b.shape[1]
+    C = V // _CHUNK
+    acc = a[:, 0, None] * b[None, 0, :]
+    for j in range(1, a.shape[1]):
+        acc = acc + a[:, j, None] * b[None, j, :]
+    s = (-acc).reshape(N, C, _CHUNK)
+    nbig = torch.tensor(_LOG_ZERO, dtype=s.dtype, device=s.device)
+    lane = torch.arange(_CHUNK, device=s.device, dtype=torch.int32)
+    big = torch.tensor(1 << 30, dtype=torch.int32, device=s.device)
+    mv = s.amax(-1, keepdim=True)
+    on = s >= mv
+    am = torch.where(on, lane, big).amin(-1, keepdim=True)
+    s2 = torch.where(on, nbig, s)
+    mv2 = s2.amax(-1, keepdim=True)
+    am2 = torch.where(s2 >= mv2, lane, big).amin(-1, keepdim=True)
+    base = (torch.arange(C, device=s.device, dtype=torch.int32)
+            * _CHUNK)[None, :, None]
+    vals = torch.cat([mv, mv2], -1).reshape(N, 2 * C)
+    gi = (torch.cat([am, am2], -1) + base).reshape(N, 2 * C)
+    P = -(-2 * C // 128) * 128
+    vals = torch.nn.functional.pad(vals, (0, P - 2 * C), value=_LOG_ZERO)
+    gi = torch.nn.functional.pad(gi, (0, P - 2 * C))
+    out_v, out_i = [], []
+    for _ in range(k):
+        mv = vals.amax(-1, keepdim=True)
+        on = vals >= mv
+        out_v.append(mv)
+        out_i.append(torch.where(on, gi, big).amin(-1, keepdim=True))
+        vals = torch.where(on, nbig, vals)
+    return torch.cat(out_v, 1), torch.cat(out_i, 1)
+
+
+def _select_launch(a, b, k: int, key: str):
+    """The kernel on (B, N, 16) ``a`` and (B, 16, V) ``b``: a grid axis over
+    the instances."""
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"select_candidates: unsupported device {a.device}")
+    if a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype:
+        raise ValueError(f"select_candidates: dtypes {a.dtype}, {b.dtype}")
+    B, N, F = a.shape
+    V = b.shape[2]
+    if tuple(b.shape) != (B, F, V) or F != 16:
+        raise ValueError(f"select_candidates: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}")
+    a = a.contiguous()
+    b = b.contiguous()
+    vals = torch.empty((B, N, k), dtype=a.dtype, device=a.device)
+    idx = torch.empty((B, N, k), dtype=torch.int32, device=a.device)
+    lib = cuda_build.library("select")
+    fn = lib.select_f32 if a.dtype == torch.float32 else lib.select_f64
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(a.data_ptr(), b.data_ptr(), vals.data_ptr(), idx.data_ptr(), B,
+            N, V, k, cuda_build.stream_ptr(a.device))
+    cuda_build.check(lib, rc, "select_candidates")
+    launches[key] += 1
+    return vals, idx
+
+
+@torch.library.custom_op("fl_slam::select_topk", mutates_args=())
+def _select(a: torch.Tensor, b: torch.Tensor,
+            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if a.device.type == "cpu":
+        return select_topk_plain(a, b, k)
+    v, i = _select_launch(a[None], b[None], k, "select_candidates")
+    return v[0], i[0]
+
+
+@torch.library.register_vmap("fl_slam::select_topk")
+def _select_vmap(info, in_dims, a, b, k):
+    B = info.batch_size
+    aa = instance_first(B, a, in_dims[0])
+    bb = instance_first(B, b, in_dims[1])
+    if aa.device.type == "cpu":
+        outs = [select_topk_plain(aa[i], bb[i], k) for i in range(B)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs])), (0, 0)
+    return _select_launch(aa, bb, k, "select_candidates_batched"), (0, 0)
+
+
+def select_candidates_plain(meas_pos, meas_dir, meas_kappa, view_packed,
+                            scan_seq, *, k: int, cost_beta: float,
+                            recency_scale: float):
+    """Plain PyTorch twin of ``select_candidates``."""
+    a, b = select_operands(meas_pos, meas_dir, meas_kappa, view_packed,
+                           scan_seq, cost_beta=cost_beta,
+                           recency_scale=recency_scale)
+    return select_topk_plain(a, b, int(k))
+
+
+def select_candidates(meas_pos, meas_dir, meas_kappa, view_packed, scan_seq,
+                      *, k: int, cost_beta: float, recency_scale: float):
+    """Top-k candidate view rows by the selection proxy cost (K9).
+
+    meas_pos/meas_dir (N, 3), meas_kappa (N,); view_packed (V, >= 16), the
+    MapView packed matrix (cols 0:3 pos | 3:6 dir | 6 kappa | 14 valid |
+    15 last_supported); scan_seq () int tensor. Returns (neg_cost (N, k) = -cost
+    descending, cand_view_idx (N, k) int32). Proxy cost, as the
+    ``select_bf16`` branch in the working dtype:
+      |x - m|^2 + beta [k_m>0][k_v>0] 0.5 (1 - mu_m . mu_v)
+      + recency_scale max(seq - last_supported, 0) + [~valid] 1e6.
+    Requires N % 128 == 0 and V % 128 == 0 (``use_select_kernel``). Under
+    ``torch.func.vmap`` one launch serves every instance."""
+    N, V = meas_pos.shape[0], view_packed.shape[0]
+    if N % _CHUNK or V % _CHUNK:
+        raise ValueError(f"select_candidates: N={N} and V={V} must be "
+                         "multiples of 128")
+    if meas_pos.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"select_candidates: unsupported device "
+                         f"{meas_pos.device}")
+    a, b = select_operands(meas_pos, meas_dir, meas_kappa, view_packed,
+                           scan_seq, cost_beta=cost_beta,
+                           recency_scale=recency_scale)
+    return _select(a, b, int(k))
+
+
+def use_select_kernel(enabled: bool, n: int, v: int, k: int = 8) -> bool:
+    """The reference's gate: 2 * (v // 128) stage-1 survivors must cover
+    the top-k request (the device of the tensors picks kernel or plain
+    version)."""
+    return (bool(enabled) and n % _CHUNK == 0 and v % _CHUNK == 0
+            and 2 * (v // _CHUNK) >= k)

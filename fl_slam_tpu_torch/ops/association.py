@@ -1,7 +1,8 @@
 """Soft association via unbalanced Sinkhorn OT (port of
 ``fl_slam_tpu/ops/association.py``): dense cost over the map view,
 top-K candidates per measurement (binned two-stage top-k under
-``approx_topk``; the bf16 proxy score under ``select_bf16``, re-scored
+``approx_topk``; the bf16 proxy score under ``select_bf16``, or the same
+proxy fused with the top-K in kernel K9 under ``select_kernel``, re-scored
 exactly), then the log-domain unbalanced Sinkhorn fixed point (kernel K3,
 ``assoc_kernels.sinkhorn_piT``) and the hard row-mass cap."""
 
@@ -52,6 +53,19 @@ def associate(meas_pos, meas_dir, meas_kappa, meas_valid, view: MapView,
     eta_m = meas_kappa[:, None] * meas_dir
     A_k1 = _log_sinh_ratio(torch.clamp(meas_kappa, min=eig_min),
                            eig_min)[:, None]
+    if assoc_kernels.use_select_kernel(cfg.select_kernel, meas_pos.shape[0],
+                                       view.packed.shape[0], K):
+        # Fused selection (K9): the proxy cost of the select_bf16 branch in
+        # the working dtype, top-K in the kernel; the dense (N, V) matrices
+        # below never materialize.
+        k_eff = min(K, view.packed.shape[0])
+        neg_cost, cand_view_idx = assoc_kernels.select_candidates(
+            meas_pos, meas_dir, meas_kappa, view.packed, scan_seq, k=k_eff,
+            cost_beta=COST_BETA,
+            recency_scale=eps * cfg.recency_decay_lambda)
+        return _finish_associate(meas_pos, meas_kappa, meas_valid,
+                                 meas_weights, view, scan_seq, cfg, neg_cost,
+                                 cand_view_idx, eta_m, A_k1, proxy_sel=True)
     x2 = torch.sum(meas_pos * meas_pos, -1)[:, None]
     m2 = torch.sum(view.positions * view.positions, -1)[None, :]
     cand_dt = torch.clamp(scan_seq - view.last_supported, min=0).to(dt)

@@ -1,13 +1,15 @@
 """Where the time of the port's replay goes, on one CUDA device.
 
   python3 -m fl_slam_tpu_torch.profile_replay [--belief-kernel on|off|both]
+                                             [--select-kernel on|off|both]
                                              [--instances B]
 
 Replays ``GCConfig.tpu()`` (``on``, the default: the belief kernels K1/K2
 carry the belief chain), ``GCConfig.tpu(belief_kernel=False)`` (``off``:
 the chain op by op) or both in one process, over 20 synthetic drifting-
 odometry scans (seed 3) after a warm-up replay, and prints one JSON line per
-configuration: the host-clock ms/scan of 3 unprofiled replays, then, from
+configuration (``--select-kernel on`` adds ``select_kernel=True``: K9 in
+the association): the host-clock ms/scan of 3 unprofiled replays, then, from
 one replay under ``torch.profiler`` (CUDA activity only), the device kernel
 time per scan, the kernel launches per scan, the device busy share against
 the median unprofiled wall time, and the kernels that take the most device
@@ -29,7 +31,8 @@ N_SCANS = 20
 N_REPS = 3
 # The port's hand-written kernels (csrc/), by their device symbol.
 OWN_KERNELS = ("pe_kernel", "tail_kernel", "sinkhorn_kernel", "moment_partial",
-               "moment_combine", "exchange_kernel", "page_kernel")
+               "moment_combine", "exchange_kernel", "page_kernel",
+               "select_kernel")
 
 
 def _runner(cfg, n_instances: int):
@@ -56,13 +59,15 @@ def _runner(cfg, n_instances: int):
         run, scans)
 
 
-def profile(belief_kernel: bool, card: str, n_instances: int = 1) -> dict:
+def profile(belief_kernel: bool, card: str, n_instances: int = 1,
+            select_kernel: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from fl_slam_tpu_torch.config import GCConfig
 
-    cfg = GCConfig.tpu(belief_kernel=belief_kernel)
+    cfg = GCConfig.tpu(belief_kernel=belief_kernel,
+                       select_kernel=select_kernel)
     fresh, replay, scans = _runner(cfg, n_instances)
 
     replay(fresh(), scans)
@@ -89,8 +94,9 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1) -> dict:
     own = [e for e in kernels
            if any(f"::{k}<" in e.key for k in OWN_KERNELS)]
     wall = sorted(walls)[len(walls) // 2]
-    label = ("GCConfig.tpu()" if belief_kernel
-             else "GCConfig.tpu(belief_kernel=False)")
+    args = ([] if belief_kernel else ["belief_kernel=False"]) + (
+        ["select_kernel=True"] if select_kernel else [])
+    label = f"GCConfig.tpu({', '.join(args)})"
     return {
         "card": card, "config": label, "instances": n_instances,
         "scans": N_SCANS,
@@ -115,6 +121,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--belief-kernel", choices=("on", "off", "both"),
                     default="on")
+    ap.add_argument("--select-kernel", choices=("on", "off", "both"),
+                    default="off")
     ap.add_argument("--instances", type=int, default=1,
                     help="B > 1: the batched replay of B instances")
     args = ap.parse_args()
@@ -128,7 +136,9 @@ def main() -> None:
         timeout=60).stdout.strip()
     modes = {"on": (True,), "off": (False,), "both": (True, False)}
     for bk in modes[args.belief_kernel]:
-        print(json.dumps(profile(bk, card, args.instances)), flush=True)
+        for sk in modes[args.select_kernel]:
+            print(json.dumps(profile(bk, card, args.instances, sk)),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -571,7 +571,9 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
         tgt_put = torch.where(do_f, tgt, SM)
         put_drop_(ff, 1, tgt_put, sub.T)
         put_drop_(sf.prim_ids, 0, tgt_put, new_ids)
-    n_ins = torch.sum(do_f.to(torch.int32))
+    # torch.sum of int32 is int64; the id counter stays int32, as it is in
+    # the reference's state.
+    n_ins = torch.sum(do_f.to(torch.int32), dtype=torch.int32)
     sf = sf._replace(next_prim_id=sf.next_prim_id + n_ins)
     ins_mass = torch.sum(w_new * do_f.to(dt))
     certs = {
@@ -594,4 +596,60 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
 
 
 def total_count(atlas: AtlasMap):
-    return torch.sum(atlas.fdata[:, _O_SCAL + _ROW_V] > 0.5)
+    return torch.sum(field_valid(atlas.fdata))
+
+
+# ---------------------------------------------------------------------------
+# Field views and dense accessors of a fused block ``fdata (A, CF, M)`` (the
+# pool's, A = P): scalar rows come back (A, M), block fields dense
+# (A, M, ...). Export and render read them; the per-scan path does not.
+# ---------------------------------------------------------------------------
+
+_GRAY = (0.5, 0.5, 0.5)
+
+
+def field_weights(fd):
+    return fd[:, _O_SCAL + _ROW_W]
+
+
+def field_cam_mass(fd):
+    return fd[:, _O_SCAL + _ROW_CM]
+
+
+def field_lidar_mass(fd):
+    return fd[:, _O_SCAL + _ROW_LM]
+
+
+def field_created_seq(fd):
+    return fd[:, _O_SCAL + _ROW_CS].to(torch.int32)
+
+
+def field_last_supported(fd):
+    return fd[:, _O_SCAL + _ROW_LS].to(torch.int32)
+
+
+def field_valid(fd):
+    return fd[:, _O_SCAL + _ROW_V] > 0.5
+
+
+def dense_Lambdas(fd):
+    """(A, M, 3, 3) dense symmetric precisions."""
+    return sym6_to_mat33(fd[:, 0:6].movedim(1, -1))
+
+
+def dense_thetas(fd):
+    return fd[:, 6:9].movedim(1, -1)                          # (A, M, 3)
+
+
+def dense_etas(fd, n_lobes: int):
+    e = fd[:, _O_ETA:_O_ETA + 3 * n_lobes].movedim(1, -1)    # (A, M, B*3)
+    return e.reshape(e.shape[:-1] + (n_lobes, 3))            # (A, M, B, 3)
+
+
+def dense_rgb(fd, eps_mass: float = 1e-12):
+    """Resolved camera-dominant color, derived from the accumulators."""
+    acc = fd[:, 9:12].movedim(1, -1)                          # (A, M, 3)
+    den = fd[:, _O_SCAL + _ROW_RD][..., None]
+    return torch.where(field_cam_mass(fd)[..., None] > 0,
+                       torch.clamp(acc / torch.clamp(den, min=eps_mass),
+                                   0.0, 1.0), const(_GRAY, acc))

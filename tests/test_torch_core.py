@@ -72,7 +72,7 @@ def test_config_copy_matches_reference(make):
 @pytest.mark.parametrize("override", [
     dict(k_hyp=4), dict(surfel_moment_kernel=False), dict(view_page=0),
     dict(camera_insert_novelty_floor=0.1), dict(slab_dma_kernel=False),
-    dict(select_kernel=True), dict(sinkhorn_kernel=False)])
+    dict(fuse_moment_kernel=False), dict(sinkhorn_kernel=False)])
 def test_require_slice_raises_for_unported_switches(override):
     tcfg.require_slice(tcfg.GCConfig.small(**SLICE))
     tcfg.require_slice(tcfg.GCConfig.tpu(belief_kernel=False))
@@ -83,11 +83,11 @@ def test_require_slice_raises_for_unported_switches(override):
 @pytest.mark.parametrize("override", [
     dict(), dict(belief_kernel=False), dict(odom_pose_relative=True),
     dict(belief_kernel=False, odom_pose_relative=True),
-    dict(insert_page_dense=True)])
+    dict(insert_page_dense=True), dict(select_kernel=True)])
 def test_require_slice_accepts_the_production_config(override):
     """``GCConfig.tpu()`` itself runs: the belief kernels and the relative
-    odometry factor are ported, on both belief branches, and so is the
-    dense-page insert of the batched replay."""
+    odometry factor are ported, on both belief branches, and so are the
+    dense-page insert of the batched replay and the fused selection K9."""
     cfg = tcfg.GCConfig.tpu(**override)
     assert tcfg.require_slice(cfg) is cfg
 

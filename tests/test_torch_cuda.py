@@ -1,8 +1,8 @@
 """The port's CUDA kernels (K1 predict + evidence, K2 scalar tail, K3
-Sinkhorn, K4 moment segment-sum, K5 slab exchange, K6 page IO, K10 the
-row-major exchange) against their plain versions, in f32 and f64, on a CUDA
-device, and their instance-batched launches (K7) against the one-instance
-ones.
+Sinkhorn, K4 moment segment-sum, K5 slab exchange, K6 page IO, K8 splat
+compositing, K9 candidate selection, K10 the row-major exchange) against
+their plain versions, in f32 and f64, on a CUDA device, and their
+instance-batched launches (K7, batched K9) against the one-instance ones.
 
 Every test skips without one. The file imports no JAX, so it also runs on
 the card, where JAX is absent:
@@ -388,3 +388,110 @@ def test_batched_replay_matches_single_replays_on_the_card(cuda):
         _, one = replay(st, to_scan_inputs(d, cfg, device=cuda), cfg,
                         device=cuda)
         assert (out.pose[i] - one.pose).abs().max().item() < 1e-8
+
+
+# ---------------------------------------------------------------------------
+# K9 (fused candidate selection) and K8 (splat compositing).
+# ---------------------------------------------------------------------------
+
+def _select_inputs(N, V, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    mp = torch.randn((N, 3), generator=g, dtype=dtype) * 5
+    md = torch.nn.functional.normalize(
+        torch.randn((N, 3), generator=g, dtype=dtype), dim=1)
+    mk = torch.rand((N,), generator=g, dtype=dtype)
+    mk[::7] = 0.0
+    pk = torch.zeros((V, 19), dtype=dtype)
+    pk[:, 0:3] = torch.randn((V, 3), generator=g, dtype=dtype) * 5
+    pk[:, 3:6] = torch.nn.functional.normalize(
+        torch.randn((V, 3), generator=g, dtype=dtype), dim=1)
+    pk[:, 6] = torch.rand((V,), generator=g, dtype=dtype)
+    pk[::5, 6] = 0.0
+    pk[:, 14] = (torch.rand((V,), generator=g) > 0.1).to(dtype)
+    pk[:, 15] = torch.randint(0, 50, (V,), generator=g).to(dtype)
+    pk[100:140] = pk[3]                   # exact ties within and across
+    mp[10:20] = mp[9]                     # chunks, and repeated rows
+    return mp, md, mk, pk, torch.tensor(60, dtype=torch.int32)
+
+
+# The kernel takes the 16-term product in the plain version's order without
+# fused multiply-adds (-fmad=false), so both round alike: exact, on the same
+# factors (the factors' 3-term sums may round differently on the CPU).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,V,k", [(1536, 5376, 8), (128, 256, 4),
+                                   (256, 16640, 8)])
+def test_select_kernel_matches_plain(cuda, dtype, N, V, k):
+    x = _select_inputs(N, V, dtype, N + V)
+    kw = dict(cost_beta=0.5, recency_scale=0.002)
+    a, b = assoc_kernels.select_operands(*x, **kw)
+    want_v, want_i = assoc_kernels.select_topk_plain(a, b, k)
+    before = assoc_kernels.launches["select_candidates"]
+    got_v, got_i = assoc_kernels.select_candidates(
+        *(t.to(cuda) for t in x), k=k, **kw)
+    assert assoc_kernels.launches["select_candidates"] == before + 1
+    plain_v, plain_i = assoc_kernels.select_candidates_plain(
+        *(t.to(cuda) for t in x), k=k, **kw)
+    assert got_i.dtype == torch.int32 and got_v.dtype == dtype
+    assert torch.equal(got_i, plain_i) and torch.equal(got_v, plain_v)
+    kv, ki = assoc_kernels._select(a.to(cuda), b.to(cuda), k)
+    assert torch.equal(ki.cpu(), want_i) and torch.equal(kv.cpu(), want_v)
+
+
+def test_batched_select_is_the_single_kernel_per_instance(cuda):
+    xs = [_select_inputs(256, 1024, torch.float32, s) for s in range(4)]
+    stk = [torch.stack(f).to(cuda) for f in zip(*xs)]
+    kw = dict(k=8, cost_beta=0.5, recency_scale=0.002)
+    fn = lambda *a: assoc_kernels.select_candidates(*a, **kw)
+    before = assoc_kernels.launches["select_candidates_batched"]
+    bv, bi = torch.func.vmap(fn)(*stk)
+    assert assoc_kernels.launches["select_candidates_batched"] == before + 1
+    for b in range(4):
+        v, i = fn(*(t[b] for t in stk))
+        assert torch.equal(bv[b], v) and torch.equal(bi[b], i)
+
+
+def _scene(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.randn((n, 3), generator=g) * torch.tensor([8.0, 6.0, 0.5])
+    A = torch.randn((n, 3, 3), generator=g)
+    Lam = A @ A.transpose(1, 2) * 20.0 + torch.eye(3) * 30.0
+    etas = torch.randn((n, 3, 3), generator=g) * 4
+    col = torch.rand((n, 3), generator=g)
+    w = torch.rand((n,), generator=g) * 3
+    val = torch.rand((n,), generator=g) > 0.05
+    return pos, Lam, etas, col, w, val
+
+
+def _top_down(W, H):
+    from fl_slam_tpu_torch.core import se3
+    from fl_slam_tpu_torch.render.splat import Camera
+    R_wc = torch.tensor([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]]).T
+    return Camera(pose_wc=torch.cat([torch.tensor([0.0, 0.0, 20.0]),
+                                     se3.so3_log(R_wc)]),
+                  fx=float(W), fy=float(W), cx=W / 2.0, cy=H / 2.0,
+                  width=W, height=H)
+
+
+# Same order of operations and no fused multiply-adds; exp may differ in
+# the last place between the kernel's expf and torch's: 1e-6 absolute on
+# colors, 1e-5 relative on depth where the pixel is covered.
+@pytest.mark.parametrize("W,H,n", [(960, 720, 16384), (200, 100, 300)])
+def test_composite_kernel_matches_plain(cuda, W, H, n):
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    scene = [t.to(cuda) for t in _scene(n, W)]
+    cam = _top_down(W, H)
+    cam = cam._replace(pose_wc=cam.pose_wc.to(cuda))
+    params, n_ty, n_tx = sk.tile_params(*scene, cam)
+    before = sk.launches["splat_composite"]
+    got = sk.composite(params, n_ty, n_tx)
+    assert sk.launches["splat_composite"] == before + 1
+    want = sk.composite_plain(params, n_ty, n_tx)
+    for a, b in zip(got[:3], want[:3]):
+        assert (a - b).abs().max().item() <= 1e-6
+    covered = sk.coverage_plain(params, n_ty, n_tx) > 1e-6
+    assert covered.any()
+    assert torch.allclose(got[3][covered], want[3][covered], rtol=1e-5,
+                          atol=0)
+    img, depth = sk.render_tiled(*scene, cam)
+    assert sk.launches["splat_composite"] == before + 2
+    assert img.shape == (H, W, 3) and torch.isfinite(img).all()
