@@ -10,8 +10,13 @@ Phases (any failure raises and the script exits non-zero without a result):
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at production
      shapes, and time kernel, plain version and, where one exists, the
-     single PyTorch call computing the same function (``library_ms``):
-     K3/K4/K5 in f32; K1/K2 in f32 and f64 on two input sets, seeded SPD
+     single PyTorch call computing the same function (``library_ms``; for
+     K4 and K6 also its device time, ``library_device_ms``, K6's under the
+     same ``vmap`` as the kernel): K3 and K4 (both sites) in f32 and f64,
+     reruns bit for bit, and at their edges (K3: N not a multiple of the
+     cluster's columns, N below the cluster, K = 1, K = 32; K4: every id in
+     one cell, every id out of range, N not a multiple of the span, f64 at
+     F = 64); K5 in f32; K1/K2 in f32 and f64 on two input sets, seeded SPD
      operands and the operands captured from one scan of a
      ``GCConfig.tpu()`` replay;
   4. replay ``GCConfig.tpu()`` (the belief kernels K1/K2 on) and then
@@ -43,8 +48,8 @@ Phases (any failure raises and the script exits non-zero without a result):
      pool's top 16,384 primitives at 960 x 720 with K = 64 under a top-down
      camera through K8 (finite, drawn pixels, positive depth where covered,
      one K8 launch); push them through the 15 BEV projections.
-Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched and
-K7), K6 and K10, and K8 (960 x 720, K = 64) and K9 (N = 1536, V = 5376,
+Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched in
+f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64) and K9 (N = 1536, V = 5376,
 k = 8, also batched at B = 8) against their plain versions.
 Then it prints the ``kernels`` JSON line (launches of the one-instance
 kernels from the ``GCConfig.tpu()`` replay of phase 4, of the batched ones
@@ -121,6 +126,126 @@ def _bound_ms(n_bytes: float, n_ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def _sinkhorn_operands(cfg, K: int, N: int, g, dev, batch=()):
+    """logKT (..., K, N) = -C^T / eps with some invalid candidates, and
+    log_a (..., N) with some dead source rows, as the association hands
+    them over (f32)."""
+    import torch
+    C = torch.rand((*batch, N, K), generator=g, device=dev) * 2.0
+    C = torch.where(torch.rand(C.shape, generator=g, device=dev) < 0.05,
+                    torch.full_like(C, 1e12), C)
+    logKT = (-C / cfg.ot_epsilon).transpose(-1, -2).contiguous()
+    a = torch.rand((*batch, N), generator=g, device=dev)
+    a = torch.where(torch.rand(a.shape, generator=g, device=dev) < 0.2,
+                    torch.zeros_like(a), a)
+    a = a / a.sum(-1, keepdim=True)
+    log_a = torch.where(a > 0, torch.log(a.clamp(min=1e-300)),
+                        torch.full_like(a, float("-inf")))
+    return logKT, log_a
+
+
+def _sinkhorn_kw(cfg, K: int) -> dict:
+    eps = cfg.ot_epsilon
+    return dict(n_iter=cfg.k_sinkhorn, ua=cfg.ot_tau_a / (cfg.ot_tau_a + eps),
+                vb=cfg.ot_tau_b / (cfg.ot_tau_b + eps),
+                log_b=-math.log(float(K)))
+
+
+def _moment_operands(F: int, N: int, C: int, g, dev, batch=()):
+    """Payload (..., F, N) f32 and skewed ids (..., N), as the path
+    produces them: padding points pile into one cell, and popular view rows
+    draw many candidates."""
+    import torch
+    pay = torch.randn((*batch, F, N), generator=g, device=dev)
+    u = torch.rand((*batch, N), generator=g, device=dev)
+    cell = (u ** 3 * C).long().clamp(max=C - 1)
+    cell = torch.where(torch.rand(u.shape, generator=g, device=dev) < 0.2,
+                       torch.zeros_like(cell), cell)
+    return pay, cell
+
+
+def _k3_tol(want) -> float:
+    """f32: LSE sums in another order x 50 iterations; f64: rounding."""
+    import torch
+    scale = want.abs().max().item()
+    return 1e-4 * scale + 1e-7 if want.dtype == torch.float32 \
+        else 1e-10 * scale
+
+
+def _k4_tol(want) -> float:
+    """f32: another summation order; f64: rounding."""
+    import torch
+    scale = want.abs().max().item()
+    return 1e-5 * scale + 1e-6 if want.dtype == torch.float32 \
+        else 1e-12 * scale
+
+
+def _held(what: str, got, want, tol: float, rerun: bool = True,
+          **extra) -> dict:
+    """Hold a kernel's output against its plain version's (and a rerun
+    against the first run, bit for bit); raises on a miss."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    dname = str(want.dtype).replace("torch.", "")
+    finite = bool(torch.isfinite(got).all())
+    if not (finite and err <= tol and rerun):
+        raise AssertionError(f"{what} ({dname}, {extra}) mismatch: {err} > "
+                             f"{tol}, finite {finite}, rerun identical "
+                             f"{rerun}")
+    return dict(dtype=dname, max_abs_err=err, tolerance=tol,
+                rerun_identical=rerun, **extra)
+
+
+def _sinkhorn_edges(cfg, g, dev) -> list:
+    """K3 where the cluster's split is ragged: N not a multiple of the 8
+    CTAs' columns, N below the 8 CTAs, K = 1 and K = 32 (f64 at the plan's
+    largest N), f32 and f64."""
+    import torch
+    from fl_slam_tpu_torch.ops import assoc_kernels
+    out = []
+    for K, N in ((8, 1537), (8, 5), (1, 1536), (32, 2048)):
+        lk, la = _sinkhorn_operands(cfg, K, N, g, dev)
+        kw = _sinkhorn_kw(cfg, K)
+        for dt in (torch.float32, torch.float64):
+            x, y = lk.to(dt), la.to(dt)
+            got = assoc_kernels.sinkhorn_piT(x, y, **kw)
+            want = assoc_kernels.sinkhorn_piT_plain(x, y, **kw)
+            out.append(_held("K3 edge", got, want, _k3_tol(want),
+                             rerun=torch.equal(got, assoc_kernels.sinkhorn_piT(
+                                 x, y, **kw)), K=K, N=N))
+    return out
+
+
+def _moment_edges(g, dev) -> list:
+    """K4 at its edges: every id in one cell, every id out of range, N not
+    a multiple of the span, and f64 at F = 64."""
+    import torch
+    from fl_slam_tpu_torch.ops import surfel_kernels
+    out = []
+    for case, F, N, C, dt in (("one_cell", 11, 8192, 8192, torch.float32),
+                              ("all_out", 32, 12288, 5376, torch.float32),
+                              ("ragged", 32, 12288 + 500, 5376,
+                               torch.float32),
+                              ("f64_F64", 64, 4096 + 77, 2000,
+                               torch.float64)):
+        pay, cell = _moment_operands(F, N, C, g, dev)
+        if case == "one_cell":
+            cell = torch.full_like(cell, C // 3)
+        elif case == "all_out":
+            cell = torch.where(cell % 2 == 0, -1 - cell, cell + C)
+        pay = pay.to(dt)
+        got = surfel_kernels.moment_segment_sum(pay, cell, C, site="fuse")
+        want = surfel_kernels.moment_segment_sum_plain(pay, cell, C)
+        rerun = torch.equal(got, surfel_kernels.moment_segment_sum(
+            pay, cell, C, site="fuse"))
+        if case == "all_out" and got.abs().max().item() != 0.0:
+            raise AssertionError("K4 edge: ids out of range were summed")
+        out.append(_held("K4 edge", got, want, _k4_tol(want), rerun=rerun,
+                         case=case, F=F, N=N, C=C))
+    return out
+
+
 def check_kernels() -> list:
     """Phase 3: every kernel of the path against its plain version."""
     import torch
@@ -134,31 +259,19 @@ def check_kernels() -> list:
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
 
-    # K3 Sinkhorn: logKT (K, N) = -C^T / eps, some invalid candidates and
-    # some dead source rows, as the association hands it over.
+    # K3 Sinkhorn at the association's shape, f32 and f64 (the kernel's
+    # plan and the tolerance by dtype), then its edges.
     K, N = cfg.k_assoc, cfg.n_meas
-    C = torch.rand((N, K), generator=g, device=dev) * 2.0
-    C = torch.where(torch.rand((N, K), generator=g, device=dev) < 0.05,
-                    torch.full_like(C, 1e12), C)
-    logKT = (-C / cfg.ot_epsilon).T.contiguous()
-    a = torch.rand((N,), generator=g, device=dev)
-    a = torch.where(torch.rand((N,), generator=g, device=dev) < 0.2,
-                    torch.zeros_like(a), a)
-    a = a / a.sum()
-    log_a = torch.where(a > 0, torch.log(a.clamp(min=1e-300)),
-                        torch.full_like(a, float("-inf")))
-    eps = cfg.ot_epsilon
-    kw = dict(n_iter=cfg.k_sinkhorn, ua=cfg.ot_tau_a / (cfg.ot_tau_a + eps),
-              vb=cfg.ot_tau_b / (cfg.ot_tau_b + eps),
-              log_b=-math.log(float(K)))
-    out_k = assoc_kernels.sinkhorn_piT(logKT, log_a, **kw)
-    out_p = assoc_kernels.sinkhorn_piT_plain(logKT, log_a, **kw)
-    torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
-    scale = out_p.abs().max().item()
-    tol = 1e-4 * scale + 1e-7      # f32, LSE sums in another order x 50
-    if not err <= tol:
-        raise AssertionError(f"K3 sinkhorn mismatch {err} > {tol}")
+    logKT, log_a = _sinkhorn_operands(cfg, K, N, g, dev)
+    kw = _sinkhorn_kw(cfg, K)
+    checks = []
+    for dt in (torch.float32, torch.float64):
+        x, y = logKT.to(dt), log_a.to(dt)
+        out_k = assoc_kernels.sinkhorn_piT(x, y, **kw)
+        again = assoc_kernels.sinkhorn_piT(x, y, **kw)
+        out_p = assoc_kernels.sinkhorn_piT_plain(x, y, **kw)
+        checks.append(_held("K3 sinkhorn", out_k, out_p, _k3_tol(out_p),
+                            rerun=torch.equal(out_k, again)))
     nb = (2 * K * N + N) * 4
     ops = cfg.k_sinkhorn * K * N * 11
     bound, by = _bound_ms(nb, ops)
@@ -166,50 +279,61 @@ def check_kernels() -> list:
         name="sinkhorn_piT", launch_key="sinkhorn_piT", route="cuda",
         source="fl_slam_tpu_torch/csrc/sinkhorn.cu",
         replaces="fl_slam_tpu/ops/assoc_kernels.py:77",
-        site="association", max_abs_err=err, tolerance=tol,
+        site="association", max_abs_err=checks[0]["max_abs_err"],
+        tolerance=checks[0]["tolerance"],
         ms=_time_ms(lambda: assoc_kernels.sinkhorn_piT(logKT, log_a, **kw)),
+        device_ms=_device_ms(lambda: assoc_kernels.sinkhorn_piT(
+            logKT, log_a, **kw)),
         plain_ms=_time_ms(lambda: assoc_kernels.sinkhorn_piT_plain(
             logKT, log_a, **kw)),
         bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"logKT ({K}, {N}) f32, {cfg.k_sinkhorn} iterations"))
+        plan=assoc_kernels.sinkhorn_plan(K, N, 4),
+        shape=f"logKT ({K}, {N}) f32, {cfg.k_sinkhorn} iterations",
+        checks=checks, edges=_sinkhorn_edges(cfg, g, dev)))
 
-    # K4 moment segment-sum at both call sites.
+    # K4 moment segment-sum at both call sites, f32 and f64, then its edges.
     n_cells = cfg.surfel_cells_1 * cfg.surfel_cells_2 * cfg.surfel_cells_z
     V = cfg.n_active_tiles * cfg.m_tile_view
     cf = _cf_padded(cfg.vmf_n_lobes)
     for site, F, Np, Cn in (("surfels", 11, cfg.n_points, n_cells),
                             ("fuse", cf, cfg.n_meas * cfg.k_assoc, V)):
-        # Skewed ids, as the path produces them: padding points pile into
-        # one cell, and popular view rows draw many candidates.
-        pay = torch.randn((F, Np), generator=g, device=dev)
-        u = torch.rand((Np,), generator=g, device=dev)
-        cell = (u ** 3 * Cn).long().clamp(max=Cn - 1)
-        cell = torch.where(torch.rand((Np,), generator=g, device=dev) < 0.2,
-                           torch.zeros_like(cell), cell)
-        out_k = surfel_kernels.moment_segment_sum(pay, cell, Cn, site=site)
-        out_p = surfel_kernels.moment_segment_sum_plain(pay, cell, Cn)
-        torch.cuda.synchronize()
-        err = (out_k - out_p).abs().max().item()
-        tol = 1e-5 * out_p.abs().max().item() + 1e-6   # f32 sum order
-        if not err <= tol:
-            raise AssertionError(f"K4 moment ({site}) mismatch {err} > {tol}")
+        pay, cell = _moment_operands(F, Np, Cn, g, dev)
+        checks = []
+        for dt in (torch.float32, torch.float64):
+            out_k = surfel_kernels.moment_segment_sum(pay.to(dt), cell, Cn,
+                                                      site=site)
+            again = surfel_kernels.moment_segment_sum(pay.to(dt), cell, Cn,
+                                                      site=site)
+            out_p = surfel_kernels.moment_segment_sum_plain(pay.to(dt), cell,
+                                                            Cn)
+            checks.append(_held(f"K4 moment ({site})", out_k, out_p,
+                                _k4_tol(out_p),
+                                rerun=torch.equal(out_k, again)))
         zeros = torch.zeros((Cn, F), device=dev)
         payT = pay.T.contiguous()
         bound, by = _bound_ms((F * Np + Np + F * Cn) * 4, F * Np)
+
+        def k4():
+            return surfel_kernels.moment_segment_sum(pay, cell, Cn, site=site)
+
+        def lib():
+            return zeros.clone().index_add_(0, cell, payT)
+
         rows.append(dict(
             name=f"moment_segment_sum[{site}]",
             launch_key=f"moment_segment_sum[{site}]", route="cuda",
             source="fl_slam_tpu_torch/csrc/moment.cu",
             replaces="fl_slam_tpu/ops/surfel_kernels.py:89",
-            site=site, max_abs_err=err, tolerance=tol,
-            ms=_time_ms(lambda: surfel_kernels.moment_segment_sum(
-                pay, cell, Cn, site=site)),
+            site=site, max_abs_err=checks[0]["max_abs_err"],
+            tolerance=checks[0]["tolerance"], ms=_time_ms(k4),
+            device_ms=_device_ms(k4),
             plain_ms=_time_ms(lambda: surfel_kernels.moment_segment_sum_plain(
                 pay, cell, Cn)),
-            bound_ms=bound, bound_by=by,
-            library_ms=_time_ms(lambda: zeros.clone().index_add_(0, cell,
-                                                                 payT)),
-            shape=f"payload ({F}, {Np}) f32 into {Cn} cells"))
+            bound_ms=bound, bound_by=by, library_ms=_time_ms(lib),
+            library_device_ms=_device_ms(lib), library="index_add_",
+            plan=surfel_kernels.moment_plan(F, Np, Cn, 4),
+            shape=f"payload ({F}, {Np}) f32 into {Cn} cells", checks=checks))
+    rows[-1]["edges"] = _moment_edges(g, dev)
 
     # K5 slab exchange: pool (P, CF, M), S resident blocks, old/new slot
     # sets that overlap; refresh 0 and 1.
@@ -284,96 +408,87 @@ def check_batched_kernels() -> list:
             raise AssertionError(f"{what}: a batched instance differs from "
                                  "the one-instance launch")
 
-    # K3 batched: per-instance costs and source masses.
+    # K3 batched: per-instance costs and source masses, f32 and f64.
     K, N = cfg.k_assoc, cfg.n_meas
-    C = torch.rand((B, N, K), generator=g, device=dev) * 2.0
-    C = torch.where(torch.rand((B, N, K), generator=g, device=dev) < 0.05,
-                    torch.full_like(C, 1e12), C)
-    logKT = (-C / cfg.ot_epsilon).transpose(1, 2).contiguous()
-    a = torch.rand((B, N), generator=g, device=dev)
-    a = torch.where(torch.rand((B, N), generator=g, device=dev) < 0.2,
-                    torch.zeros_like(a), a)
-    a = a / a.sum(1, keepdim=True)
-    log_a = torch.where(a > 0, torch.log(a.clamp(min=1e-300)),
-                        torch.full_like(a, float("-inf")))
-    eps = cfg.ot_epsilon
-    kw = dict(n_iter=cfg.k_sinkhorn, ua=cfg.ot_tau_a / (cfg.ot_tau_a + eps),
-              vb=cfg.ot_tau_b / (cfg.ot_tau_b + eps),
-              log_b=-math.log(float(K)))
+    logKT, log_a = _sinkhorn_operands(cfg, K, N, g, dev, batch=(B,))
+    kw = _sinkhorn_kw(cfg, K)
 
-    def k3():
-        return vmap(lambda x, y: assoc_kernels.sinkhorn_piT(x, y, **kw))(
-            logKT, log_a)
+    def k3(x=logKT, y=log_a):
+        return vmap(lambda p, q: assoc_kernels.sinkhorn_piT(p, q, **kw))(x, y)
 
-    def k3_plain():
+    def k3_plain(x=logKT, y=log_a):
         return torch.stack([assoc_kernels.sinkhorn_piT_plain(
-            logKT[b], log_a[b], **kw) for b in range(B)])
+            x[b], y[b], **kw) for b in range(B)])
 
-    out_k, out_p = k3(), k3_plain()
-    same_as_single(out_k[B - 1], assoc_kernels.sinkhorn_piT(
-        logKT[B - 1], log_a[B - 1], **kw), "K3")
-    torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
-    tol = 1e-4 * out_p.abs().max().item() + 1e-7
-    if not err <= tol:
-        raise AssertionError(f"K3 batched mismatch {err} > {tol}")
+    checks = []
+    for dt in (torch.float32, torch.float64):
+        x, y = logKT.to(dt), log_a.to(dt)
+        out_k, out_p = k3(x, y), k3_plain(x, y)
+        same_as_single(out_k[B - 1], assoc_kernels.sinkhorn_piT(
+            x[B - 1], y[B - 1], **kw), "K3")
+        checks.append(_held("K3 batched", out_k, out_p, _k3_tol(out_p),
+                            rerun=torch.equal(out_k, k3(x, y))))
     bound, by = _bound_ms(B * (2 * K * N + N) * 4,
                           B * cfg.k_sinkhorn * K * N * 11)
     rows.append(dict(
         name="sinkhorn_piT[batched]", launch_key="sinkhorn_piT[batched]",
         route="cuda", source="fl_slam_tpu_torch/csrc/sinkhorn.cu",
         replaces="fl_slam_tpu/ops/assoc_kernels.py:77", site=f"B={B}",
-        max_abs_err=err, tolerance=tol, ms=_time_ms(k3),
+        max_abs_err=checks[0]["max_abs_err"],
+        tolerance=checks[0]["tolerance"], ms=_time_ms(k3),
         device_ms=_device_ms(k3), plain_ms=_time_ms(k3_plain, reps=3),
         bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"logKT ({B}, {K}, {N}) f32, {cfg.k_sinkhorn} iterations"))
-    del C, logKT, a, log_a, out_k, out_p
+        shape=f"logKT ({B}, {K}, {N}) f32, {cfg.k_sinkhorn} iterations",
+        checks=checks))
+    del logKT, log_a, out_k, out_p
 
-    # K4 batched at both call sites, skewed ids per instance.
+    # K4 batched at both call sites, skewed ids per instance, f32 and f64.
     n_cells = cfg.surfel_cells_1 * cfg.surfel_cells_2 * cfg.surfel_cells_z
     V = cfg.n_active_tiles * cfg.m_tile_view
     cf = _cf_padded(cfg.vmf_n_lobes)
     for site, F, Np, Cn in (("surfels", 11, cfg.n_points, n_cells),
                             ("fuse", cf, cfg.n_meas * cfg.k_assoc, V)):
-        pay = torch.randn((B, F, Np), generator=g, device=dev)
-        u = torch.rand((B, Np), generator=g, device=dev)
-        cell = (u ** 3 * Cn).long().clamp(max=Cn - 1)
-        cell = torch.where(torch.rand((B, Np), generator=g, device=dev) < 0.2,
-                           torch.zeros_like(cell), cell)
+        pay, cell = _moment_operands(F, Np, Cn, g, dev, batch=(B,))
 
-        def k4():
-            return vmap(lambda p, c: surfel_kernels.moment_segment_sum(
-                p, c, Cn, site=site))(pay, cell)
+        def k4(p=pay):
+            return vmap(lambda x, c: surfel_kernels.moment_segment_sum(
+                x, c, Cn, site=site))(p, cell)
 
-        def k4_plain():
+        def k4_plain(p=pay):
             return torch.stack([surfel_kernels.moment_segment_sum_plain(
-                pay[b], cell[b], Cn) for b in range(B)])
+                p[b], cell[b], Cn) for b in range(B)])
 
-        out_k, out_p = k4(), k4_plain()
-        same_as_single(out_k[1], surfel_kernels.moment_segment_sum(
-            pay[1], cell[1], Cn, site=site), f"K4 {site}")
-        torch.cuda.synchronize()
-        err = (out_k - out_p).abs().max().item()
-        tol = 1e-5 * out_p.abs().max().item() + 1e-6
-        if not err <= tol:
-            raise AssertionError(f"K4 batched ({site}) mismatch {err} > {tol}")
+        checks = []
+        for dt in (torch.float32, torch.float64):
+            p = pay.to(dt)
+            out_k, out_p = k4(p), k4_plain(p)
+            same_as_single(out_k[1], surfel_kernels.moment_segment_sum(
+                p[1], cell[1], Cn, site=site), f"K4 {site}")
+            checks.append(_held(f"K4 batched ({site})", out_k, out_p,
+                                _k4_tol(out_p), rerun=torch.equal(out_k,
+                                                                  k4(p))))
         zeros = torch.zeros((B * Cn, F), device=dev)
         flat_ids = (cell + Cn * torch.arange(B, device=dev)[:, None]
                     ).reshape(-1)
         payT = pay.transpose(1, 2).reshape(B * Np, F).contiguous()
         bound, by = _bound_ms(B * (F * Np + Np + F * Cn) * 4, B * F * Np)
+
+        def lib():
+            return zeros.clone().index_add_(0, flat_ids, payT)
+
         rows.append(dict(
             name=f"moment_segment_sum[{site},batched]",
             launch_key=f"moment_segment_sum[{site},batched]", route="cuda",
             source="fl_slam_tpu_torch/csrc/moment.cu",
             replaces="fl_slam_tpu/ops/surfel_kernels.py:89",
-            site=f"{site}, B={B}", max_abs_err=err, tolerance=tol,
+            site=f"{site}, B={B}", max_abs_err=checks[0]["max_abs_err"],
+            tolerance=checks[0]["tolerance"],
             ms=_time_ms(k4), device_ms=_device_ms(k4),
             plain_ms=_time_ms(k4_plain, reps=3), bound_ms=bound,
-            bound_by=by,
-            library_ms=_time_ms(lambda: zeros.clone().index_add_(
-                0, flat_ids, payT)),
-            shape=f"payload ({B}, {F}, {Np}) f32 into {Cn} cells"))
+            bound_by=by, library_ms=_time_ms(lib),
+            library_device_ms=_device_ms(lib), library="index_add_",
+            shape=f"payload ({B}, {F}, {Np}) f32 into {Cn} cells",
+            checks=checks))
         del pay, cell, out_k, out_p, zeros, payT
 
     # K7 (batched K5) and K10: pools (B, P, CF, M), per-instance slot sets
@@ -478,7 +593,13 @@ def check_batched_kernels() -> list:
         return torch.stack([ak.page_gather_ff_plain(ff[b], offs[b], Pg)
                             for b in range(B)])
 
+    def k6g_lib():
+        return vmap(lambda f, c: torch.gather(f, 1, c))(ff, cols)
+
     out_k, out_p = k6g(), k6g_plain()
+    if not torch.equal(k6g_lib(), out_p):
+        raise AssertionError("K6 gather: the library call computes another "
+                             "function")
     same_as_single(out_k[2], ak.page_gather_ff(ff[2], offs[2], Pg), "K6")
     torch.cuda.synchronize()
     err = (out_k - out_p).abs().max().item()
@@ -492,7 +613,9 @@ def check_batched_kernels() -> list:
         site=f"B={B}", max_abs_err=err, tolerance=0.0, ms=_time_ms(k6g),
         device_ms=_device_ms(k6g), plain_ms=_time_ms(k6g_plain),
         bound_ms=bound, bound_by=by,
-        library_ms=_time_ms(lambda: torch.gather(ff, 2, cols)),
+        library_ms=_time_ms(k6g_lib), library_device_ms=_device_ms(k6g_lib),
+        library="torch.gather under the same vmap",
+        library_unbatched_ms=_time_ms(lambda: torch.gather(ff, 2, cols)),
         shape=f"ff ({B}, {cf}, {S * M}) f32, {S} pages of {Pg}"))
     ff_k, ff_p, ff_l = ff.clone(), ff.clone(), ff.clone()
 
@@ -504,12 +627,17 @@ def check_batched_kernels() -> list:
         for b in range(B):
             ak.page_writeback_ff_plain(ff_p[b], offs[b], upd[b], Pg)
 
+    def k6w_lib():
+        vmap(lambda f, c, u: f.scatter_(1, c, u))(ff_l, cols, upd)
+
     k6w()
     k6w_plain()
+    k6w_lib()
     torch.cuda.synchronize()
     err = (ff_k - ff_p).abs().max().item()
-    if err != 0.0:
-        raise AssertionError(f"K6 write-back mismatch {err}")
+    if err != 0.0 or not torch.equal(ff_l, ff_p):
+        raise AssertionError(f"K6 write-back mismatch {err} (or the library "
+                             "call computes another function)")
     rows.append(dict(
         name="page_writeback_ff", launch_key="page_writeback_ff",
         route="cuda", source="fl_slam_tpu_torch/csrc/page_io.cu",
@@ -517,7 +645,9 @@ def check_batched_kernels() -> list:
         site=f"B={B}", max_abs_err=err, tolerance=0.0, ms=_time_ms(k6w),
         device_ms=_device_ms(k6w), plain_ms=_time_ms(k6w_plain),
         bound_ms=bound, bound_by=by,
-        library_ms=_time_ms(lambda: ff_l.scatter_(2, cols, upd)),
+        library_ms=_time_ms(k6w_lib), library_device_ms=_device_ms(k6w_lib),
+        library="scatter_ under the same vmap",
+        library_unbatched_ms=_time_ms(lambda: ff_l.scatter_(2, cols, upd)),
         shape=f"ff ({B}, {cf}, {S * M}) f32, {S} pages of {Pg}"))
     del ff, upd, ff_k, ff_p, ff_l, out_k, out_p
 

@@ -8,7 +8,10 @@ keyed by the hash of its sources, so an edited source rebuilds. A failed
 build raises with the compiler's output.
 
 Every C entry point launches on the stream it is given, allocates nothing
-and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
+and returns ``cudaGetLastError()``. The wrappers call it through ``launch``,
+which makes the operands' device the current one for the call (a launch
+into a stream of a device that is not current fails) and raises on a
+non-zero code.
 """
 
 from __future__ import annotations
@@ -104,6 +107,22 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
             f"{what}: CUDA error {rc} ({lib.fl_error_string(rc).decode()})")
 
 
-def stream_ptr(device) -> int:
+def device_guard(device):
+    """A context in which ``device`` is the current CUDA device (a no-op
+    for a CPU device)."""
+    import contextlib
+
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    if torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(lib: ctypes.CDLL, fn, what: str, device, *args) -> None:
+    """Call the C entry point ``fn`` of ``lib`` with ``args`` and the
+    current stream of ``device``, with ``device`` the current device;
+    raises on a non-zero code."""
+    import torch
+    with device_guard(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, rc, what)

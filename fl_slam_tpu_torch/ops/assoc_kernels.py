@@ -5,11 +5,12 @@ and ``:272`` stage 2 of ``select_candidates``).
 
 ``sinkhorn_piT`` is a ``torch.library.custom_op``: it launches the
 hand-written CUDA kernel (``csrc/sinkhorn.cu``, the Pallas kernel's
-finite-cap form) for CUDA tensors and runs the plain version
+finite-cap form, one cluster of 8 CTAs per instance; ``sinkhorn_plan``
+sizes it) for CUDA tensors and runs the plain version
 (``sinkhorn_piT_plain``, the reference's XLA form with -inf rows) for CPU
-tensors; any other device, or a shape the kernel cannot hold on one SM,
-raises. ``select_candidates`` builds the proxy cost's two factors in torch
-and hands them to the op behind K9 (``csrc/select.cu``; plain version
+tensors; any other device, or a shape the kernel cannot hold, raises.
+``select_candidates`` builds the proxy cost's two factors in torch and
+hands them to the op behind K9 (``csrc/select.cu``; plain version
 ``select_topk_plain``) the same way. Their instance-batching rules
 (``register_vmap``) launch the kernel once for all instances under
 ``torch.func.vmap`` (the reference gets that batching from its grid).
@@ -27,8 +28,37 @@ from fl_slam_tpu_torch.runtime import instance_first
 
 _NEG_CAP = -1e30
 _LOG_ZERO = -3e38
-_MAX_SMEM = 227 * 1024 - 8 * 1024     # dynamic smem left beside the static
 launches = {"sinkhorn_piT": 0, "sinkhorn_piT_batched": 0}
+_CLUSTER = 8          # CTAs per instance
+_MAX_THREADS = 256    # threads per CTA
+_MAX_CPT = 4          # columns per thread (kernel templates 1, 2, 4)
+
+
+def sinkhorn_plan(K: int, N: int, itemsize: int) -> dict:
+    """The kernel's launch plan for one instance: a cluster of 8 CTAs
+    splits the N columns (``cols_per_cta`` each); a thread keeps
+    ``cols_per_thread`` columns' K potentials in registers (at most 64
+    32-bit registers of them), ``threads`` per CTA. ``smem_bytes`` is the
+    CTA's shared memory (the warp partials, and the cluster's CTA partials
+    by iteration parity). Raises, naming
+    shared memory, for what the kernel cannot hold."""
+    km = 8 if K <= 8 else 16 if K <= 16 else 32
+    words = km * (itemsize // 4)
+    cpt_max = min(_MAX_CPT, max(1, 64 // words))
+    max_n = _CLUSTER * _MAX_THREADS * cpt_max
+    if not 1 <= K <= 32 or N > max_n:
+        raise ValueError(
+            f"sinkhorn_piT: K={K}, N={N} does not fit the kernel's registers "
+            f"and shared memory (K <= 32, N <= {max_n} at this K and dtype)")
+    cpc = -(-N // _CLUSTER)
+    cpt = 1
+    while cpt < cpt_max and cpc > cpt * _MAX_THREADS:
+        cpt *= 2
+    threads = min(_MAX_THREADS, max(32, -(-(-(-cpc // cpt)) // 32) * 32))
+    warps = _MAX_THREADS // 32
+    return {"cluster": _CLUSTER, "threads": threads, "cols_per_thread": cpt,
+            "cols_per_cta": cpc, "k_max": km, "max_n": max_n,
+            "smem_bytes": (2 * warps + 4 * _CLUSTER) * km * itemsize}
 
 
 def sinkhorn_piT_plain(logKT, log_a, *, n_iter: int, ua: float, vb: float,
@@ -52,8 +82,8 @@ def sinkhorn_piT_plain(logKT, log_a, *, n_iter: int, ua: float, vb: float,
 
 def _launch(logKT, log_a, *, n_iter: int, ua: float, vb: float,
             log_b: float, key: str):
-    """The kernel on (B, K, N) ``logKT`` and (B, N) ``log_a``: one block per
-    instance."""
+    """The kernel on (B, K, N) ``logKT`` and (B, N) ``log_a``: one cluster
+    per instance."""
     if logKT.device.type != "cuda":
         raise ValueError(f"sinkhorn_piT: unsupported device {logKT.device}")
     B, K, N = logKT.shape
@@ -62,10 +92,7 @@ def _launch(logKT, log_a, *, n_iter: int, ua: float, vb: float,
                          f"not match logKT {tuple(logKT.shape[1:])}")
     if logKT.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"sinkhorn_piT: dtype {logKT.dtype}")
-    smem = (K + 2) * N * logKT.element_size()
-    if K > 32 or smem > _MAX_SMEM:
-        raise ValueError(f"sinkhorn_piT: K={K}, N={N} needs {smem} B of "
-                         f"shared memory (K <= 32 and <= {_MAX_SMEM} B)")
+    plan = sinkhorn_plan(K, N, logKT.element_size())
     logKT = logKT.contiguous()
     la = torch.nan_to_num(log_a.to(logKT.dtype), nan=_LOG_ZERO,
                           neginf=_LOG_ZERO, posinf=0.0).contiguous()
@@ -73,13 +100,13 @@ def _launch(logKT, log_a, *, n_iter: int, ua: float, vb: float,
     lib = cuda_build.library("sinkhorn")
     fn = lib.sinkhorn_f32 if logKT.dtype == torch.float32 else \
         lib.sinkhorn_f64
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                    + [ctypes.c_double] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(logKT.data_ptr(), la.data_ptr(), piT.data_ptr(), B, K, N,
-            int(n_iter), float(ua), float(vb), float(log_b),
-            cuda_build.stream_ptr(logKT.device))
-    cuda_build.check(lib, rc, "sinkhorn_piT")
+    cuda_build.launch(lib, fn, "sinkhorn_piT", logKT.device, logKT.data_ptr(),
+                      la.data_ptr(), piT.data_ptr(), B, K, N, plan["threads"],
+                      plan["cols_per_thread"], int(n_iter), float(ua),
+                      float(vb), float(log_b))
     launches[key] += 1
     return piT
 
@@ -217,9 +244,9 @@ def _select_launch(a, b, k: int, key: str):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(a.data_ptr(), b.data_ptr(), vals.data_ptr(), idx.data_ptr(), B,
-            N, V, k, cuda_build.stream_ptr(a.device))
-    cuda_build.check(lib, rc, "select_candidates")
+    cuda_build.launch(lib, fn, "select_candidates", a.device, a.data_ptr(),
+                      b.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, N, V,
+                      k)
     launches[key] += 1
     return vals, idx
 

@@ -777,9 +777,9 @@ def _launch(name, params, ins, n_out, key):
     fn.restype = ctypes.c_int
     ins = [t.contiguous() for t in ins]
     out = torch.empty((B, n_out), dtype=like.dtype, device=like.device)
-    rc = fn(*[t.data_ptr() for t in ins], out.data_ptr(),
-            ctypes.addressof(params), B, cuda_build.stream_ptr(like.device))
-    cuda_build.check(lib, rc, name)
+    cuda_build.launch(lib, fn, name, like.device,
+                      *[t.data_ptr() for t in ins], out.data_ptr(),
+                      ctypes.addressof(params), B)
     launches[key] += 1
     return out
 

@@ -7,7 +7,9 @@ plain version (``moment_segment_sum_plain``) for CPU tensors; any other
 device raises. It takes any shape: there is no alignment gate. Ids outside
 [0, n_cells) drop. Its instance-batching rule (``register_vmap``) launches
 the kernel once for all instances under ``torch.func.vmap``, with a grid
-axis over them. ``launches[site]`` counts kernel launches per call site,
+axis over them. The kernel is two launches on one stream (a sort-and-
+reduce pass per span of ids, then a gather per cell; ``moment_plan`` sizes
+them) and counts one: ``launches[site]`` per call site,
 ``launches[site + "_batched"]`` the batched ones.
 """
 
@@ -22,8 +24,31 @@ from fl_slam_tpu_torch.runtime import instance_first
 
 launches = {"surfels": 0, "fuse": 0, "surfels_batched": 0,
             "fuse_batched": 0}
-_MAX_F = 64          # payload rows the kernel holds in registers
-_SPAN = 1024         # ids per span of the first pass
+_MAX_F = 64               # payload rows the kernel takes
+_MAX_SPAN = 256           # ids per span of the first pass (its threads)
+_TILE = 128               # cells per block of the second pass
+
+
+def moment_plan(F: int, N: int, C: int, itemsize: int) -> dict:
+    """The launch plan of the kernel for one instance: the span S (ids per
+    block of the first pass, a power of two, 32 <= S <= 256) is 256, cut to
+    the next power of two >= N; Y spans cover the N ids. A block stages its
+    payload and two key buffers, at most S (F itemsize + 16) bytes of shared
+    memory (135 KB at F = 64 in f64, of the 227 KB a block may hold). The
+    scratch between the passes is each span's distinct cells, their sums
+    (F rounded up to 16 bytes) and the first run of each 128-cell tile:
+    O(F N) bytes, and Y (C / 128 + 1) ints."""
+    if not 1 <= F <= _MAX_F:
+        raise ValueError(f"moment_segment_sum: {F} payload rows, the kernel "
+                         f"takes 1 to {_MAX_F}")
+    S = min(_MAX_SPAN, max(32, 1 << max(0, N - 1).bit_length()))
+    Y = -(-N // S)
+    vec = 16 // itemsize
+    FP = -(-F // vec) * vec
+    T1 = -(-C // _TILE) + 1
+    return {"span": S, "spans": Y, "features_padded": FP, "tiles": T1,
+            "smem_bytes": S * (F * itemsize + 16),
+            "scratch_bytes": Y * (S * (FP * itemsize + 4) + 4 * T1)}
 
 
 def moment_segment_sum_plain(payload, cell, n_cells: int):
@@ -49,24 +74,25 @@ def _launch(payload, cell, n_cells: int, key: str):
     if cell.device != payload.device:
         raise ValueError("moment_segment_sum: payload and cell devices differ")
     B, F, N = payload.shape
-    if F > _MAX_F:
-        raise ValueError(f"moment_segment_sum: {F} payload rows > {_MAX_F}")
+    plan = moment_plan(F, N, n_cells, payload.element_size())
+    S, Y = plan["span"], plan["spans"]
     payload = payload.contiguous()
     cell32 = cell.to(torch.int32).contiguous()
-    Y = max(1, min(64, -(-N // _SPAN)))
-    part = torch.empty((B, Y, F, n_cells), dtype=payload.dtype,
-                       device=payload.device)
-    out = torch.empty((B, F, n_cells), dtype=payload.dtype,
-                      device=payload.device)
+    dev = payload.device
+    ucell = torch.empty((B, Y, S), dtype=torch.int32, device=dev)
+    tile_lo = torch.empty((B, Y, plan["tiles"]), dtype=torch.int32,
+                          device=dev)
+    usum = torch.empty((B, Y, S, plan["features_padded"]),
+                       dtype=payload.dtype, device=dev)
+    out = torch.empty((B, F, n_cells), dtype=payload.dtype, device=dev)
     lib = cuda_build.library("moment")
     fn = lib.moment_f32 if payload.dtype == torch.float32 else lib.moment_f64
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(payload.data_ptr(), cell32.data_ptr(), part.data_ptr(),
-            out.data_ptr(), B, F, N, n_cells, Y,
-            cuda_build.stream_ptr(payload.device))
-    cuda_build.check(lib, rc, "moment_segment_sum")
+    cuda_build.launch(lib, fn, "moment_segment_sum", dev, payload.data_ptr(),
+                      cell32.data_ptr(), ucell.data_ptr(), tile_lo.data_ptr(),
+                      usum.data_ptr(), out.data_ptr(), B, F, N, n_cells, S)
     launches[key] += 1
     return out
 

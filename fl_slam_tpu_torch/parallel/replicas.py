@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.utils._pytree as pytree
 
+from fl_slam_tpu_torch import cuda_build
 from fl_slam_tpu_torch.certs import assert_memory_envelope
 from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.pipeline import (flush_slabs, init_state,
@@ -79,7 +80,13 @@ def init_states_batched(cfg: GCConfig, n_instances: int, anchors0=None,
 
 
 def _per_device(fn, *shards):
-    return tuple(fn(*args) for args in zip(*shards))
+    """``fn`` on each device's shard (the device last among the arguments),
+    with that device current, so that its kernels launch there."""
+    out = []
+    for args in zip(*shards):
+        with cuda_build.device_guard(args[-1]):
+            out.append(fn(*args))
+    return tuple(out)
 
 
 def _pairs(results):

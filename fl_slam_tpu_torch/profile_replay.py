@@ -14,7 +14,10 @@ one replay under ``torch.profiler`` (CUDA activity only), the device kernel
 time per scan, the kernel launches per scan, the device busy share against
 the median unprofiled wall time, and the kernels that take the most device
 time, among them each hand-written kernel of the port (device us per
-call). With ``--instances B`` (B > 1) it profiles the instance-batched
+call), and each port kernel's launches as the profiler counted them
+beside the port's own ``launches`` counters from the same replay
+(``port_counts``; the script exits non-zero when they differ). With
+``--instances B`` (B > 1) it profiles the instance-batched
 replay (``parallel.replicas.batched_replay``) of B instances (seeds 3 ..
 3 + B - 1) the same way: every per-scan figure is then per batched scan,
 which advances all B instances by one scan.
@@ -29,10 +32,87 @@ import time
 
 N_SCANS = 20
 N_REPS = 3
-# The port's hand-written kernels (csrc/), by their device symbol.
-OWN_KERNELS = ("pe_kernel", "tail_kernel", "sinkhorn_kernel", "moment_partial",
-               "moment_combine", "exchange_kernel", "page_kernel",
-               "select_kernel")
+# The port's hand-written kernels (csrc/) by their device symbol, each with
+# the launch counters (module, key, device launches per count) that count
+# it: an exchange is two launches (flush, then gather) counted once; K4 is
+# two kernels (sort-and-reduce, then gather) counted once.
+_K4_KEYS = ("surfels", "fuse", "surfels_batched", "fuse_batched")
+KERNEL_COUNTERS = {
+    "pe_kernel": (("belief_kernels", "predict_evidence", 1),
+                  ("belief_kernels", "predict_evidence_batched", 1)),
+    "tail_kernel": (("belief_kernels", "scalar_tail", 1),
+                    ("belief_kernels", "scalar_tail_batched", 1)),
+    "sinkhorn_cluster": (("assoc_kernels", "sinkhorn_piT", 1),
+                         ("assoc_kernels", "sinkhorn_piT_batched", 1)),
+    "moment_sort_reduce": tuple(("surfel_kernels", k, 1) for k in _K4_KEYS),
+    "moment_gather": tuple(("surfel_kernels", k, 1) for k in _K4_KEYS),
+    "exchange_kernel": tuple(("atlas_kernels", k, 2) for k in (
+        "exchange_ff", "exchange_ff_batched", "exchange",
+        "exchange_batched")),
+    "page_kernel": (("atlas_kernels", "page_gather", 1),
+                    ("atlas_kernels", "page_writeback", 1)),
+    "select_kernel": (("assoc_kernels", "select_candidates", 1),
+                      ("assoc_kernels", "select_candidates_batched", 1)),
+}
+OWN_KERNELS = tuple(KERNEL_COUNTERS)
+
+
+def own_kernel(key: str):
+    """The port kernel's symbol in a profiler event key
+    (``void (anonymous namespace)::moment_gather<float>(...)``), or None."""
+    for k in OWN_KERNELS:
+        if f"::{k}<" in key:
+            return k
+    return None
+
+
+def reconcile(events, counters: dict) -> list:
+    """Hold the profiler's launches of each port kernel against the port's
+    own counters from the same run. ``events`` are (key, count) pairs of
+    the profiler's device kernels; ``counters`` maps a module name to its
+    ``launches`` dict. Returns one row per port kernel seen by either side:
+    name, profiler count, port count and whether they agree."""
+    seen = {}
+    for key, count in events:
+        k = own_kernel(key)
+        if k is not None:
+            seen[k] = seen.get(k, 0) + count
+    rows = []
+    for k, refs in KERNEL_COUNTERS.items():
+        port = sum(counters[mod][key] * per for mod, key, per in refs)
+        prof = seen.get(k, 0)
+        if port or prof:
+            rows.append({"name": k, "profiler": prof, "port": port,
+                         "agree": prof == port})
+    return rows
+
+
+# The profiler can drop the last few hundred kernel records of a trace (a
+# batched profile once lost the final scan's last 5 port kernels: tail
+# truncation). The replay is therefore followed, inside the trace, by a
+# trailer of empty kernels (``torch.cuda._sleep``, device symbol
+# ``spin_kernel``) that the figures leave out, so that a truncation falls
+# on the trailer; ``reconcile`` shows whether it did.
+_TRAILER = "spin_kernel"
+_TRAILER_LAUNCHES = 30000
+
+
+def _trailer() -> None:
+    import torch
+    for _ in range(_TRAILER_LAUNCHES):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    time.sleep(0.2)
+
+
+def _counters() -> dict:
+    from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
+                                       surfel_kernels)
+    from fl_slam_tpu_torch.structures import atlas_kernels
+    return {"assoc_kernels": assoc_kernels.launches,
+            "belief_kernels": belief_kernels.launches,
+            "surfel_kernels": surfel_kernels.launches,
+            "atlas_kernels": atlas_kernels.launches}
 
 
 def _runner(cfg, n_instances: int):
@@ -83,16 +163,21 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1,
 
     st = fresh()
     torch.cuda.synchronize()
+    counters = _counters()
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         replay(st, scans)
         torch.cuda.synchronize()
+        _trailer()
     kernels = [e for e in prof.key_averages()
-               if e.self_device_time_total > 0]
+               if e.self_device_time_total > 0 and _TRAILER not in e.key]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    own = [e for e in kernels
-           if any(f"::{k}<" in e.key for k in OWN_KERNELS)]
+    own = [e for e in kernels if own_kernel(e.key) is not None]
+    counts = reconcile([(e.key, e.count) for e in kernels], counters)
     wall = sorted(walls)[len(walls) // 2]
     args = ([] if belief_kernel else ["belief_kernel=False"]) + (
         ["select_kernel=True"] if select_kernel else [])
@@ -112,7 +197,9 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1,
         "port_kernels": [{"name": e.key.split("::", 1)[1].split("(")[0],
                           "us_per_call": e.self_device_time_total / e.count,
                           "calls_per_scan": e.count / N_SCANS}
-                         for e in own]}
+                         for e in own],
+        "port_counts": counts,
+        "counts_agree": all(r["agree"] for r in counts)}
 
 
 def main() -> None:
@@ -135,10 +222,15 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     modes = {"on": (True,), "off": (False,), "both": (True, False)}
+    agree = True
     for bk in modes[args.belief_kernel]:
         for sk in modes[args.select_kernel]:
-            print(json.dumps(profile(bk, card, args.instances, sk)),
-                  flush=True)
+            res = profile(bk, card, args.instances, sk)
+            print(json.dumps(res), flush=True)
+            agree &= res["counts_agree"]
+    if not agree:
+        raise SystemExit("profile_replay: the profiler's kernel counts "
+                         "differ from the port's launch counters")
 
 
 if __name__ == "__main__":

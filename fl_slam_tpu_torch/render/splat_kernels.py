@@ -87,9 +87,8 @@ def _launch(params, n_tx: int):
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(params.data_ptr(), out.data_ptr(), T, K, n_tx,
-            cuda_build.stream_ptr(params.device))
-    cuda_build.check(lib, rc, "splat_composite")
+    cuda_build.launch(lib, fn, "splat_composite", params.device,
+                      params.data_ptr(), out.data_ptr(), T, K, n_tx)
     launches["splat_composite"] += 1
     return out
 

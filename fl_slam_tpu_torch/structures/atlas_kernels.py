@@ -134,11 +134,10 @@ def _launch_exchange(pool_f, pool_p, slab_f, slab_p, old_slots, new_slots,
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(flag.data_ptr(), olds.data_ptr(), news.data_ptr(),
-            pool_f.data_ptr(), pool_p.data_ptr(), slab_f.data_ptr(),
-            slab_p.data_ptr(), B, P, CF, M, S, int(row_major),
-            cuda_build.stream_ptr(pool_f.device))
-    cuda_build.check(lib, rc, key)
+    cuda_build.launch(lib, fn, key, pool_f.device, flag.data_ptr(),
+                      olds.data_ptr(), news.data_ptr(), pool_f.data_ptr(),
+                      pool_p.data_ptr(), slab_f.data_ptr(), slab_p.data_ptr(),
+                      B, P, CF, M, S, int(row_major))
     launches[key] += 1
 
 
@@ -164,9 +163,8 @@ def _launch_page(kind: str, ff, offs, page, P: int):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(offs32.data_ptr(), ff.data_ptr(), page.data_ptr(), B, CF, SM, S,
-            P, cuda_build.stream_ptr(ff.device))
-    cuda_build.check(lib, rc, name)
+    cuda_build.launch(lib, fn, name, ff.device, offs32.data_ptr(),
+                      ff.data_ptr(), page.data_ptr(), B, CF, SM, S, P)
     launches[f"page_{kind}"] += 1
 
 

@@ -495,3 +495,111 @@ def test_composite_kernel_matches_plain(cuda, W, H, n):
     img, depth = sk.render_tiled(*scene, cam)
     assert sk.launches["splat_composite"] == before + 2
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
+
+
+# The redesigned K4 (sort each span, segmented reduction, gather per cell)
+# at its edges: every id in one cell, every id out of range, N not a
+# multiple of the span, f64 at F = 64, heavy skew. Each must match the
+# plain version within the tolerances above, rerun bit for bit, and give
+# every batched instance exactly its one-instance launch.
+def _moment_edge_ids(case, N, C, g):
+    if case == "one_cell":
+        return torch.full((N,), C // 2, dtype=torch.int64)
+    if case == "all_out":
+        return torch.where(torch.rand((N,), generator=g) < 0.5,
+                           torch.full((N,), -1), torch.full((N,), C + 7))
+    if case == "skewed":          # half in the padding cell, then popular
+        u = torch.rand((N,), generator=g)
+        cell = (u ** 4 * C).long()
+        return torch.where(torch.rand((N,), generator=g) < 0.5,
+                           torch.zeros_like(cell), cell)
+    return (torch.rand((N,), generator=g) * (C + 20)).long() - 10
+
+
+@pytest.mark.parametrize("case,F,N,C,dtype", [
+    ("one_cell", 11, 8192, 8192, torch.float32),
+    ("all_out", 32, 12288, 5376, torch.float32),
+    ("ragged", 32, 12289, 5376, torch.float32),
+    ("ragged", 7, 1000, 300, torch.float32),
+    ("skewed", 32, 12288, 5376, torch.float32),
+    ("ragged", 64, 3001, 1000, torch.float64),
+    ("skewed", 64, 4096, 2000, torch.float64),
+    ("one_cell", 64, 700, 50, torch.float64),
+])
+def test_moment_kernel_edges(cuda, case, F, N, C, dtype):
+    g = torch.Generator().manual_seed(N + F)
+    pay = torch.randn((F, N), generator=g, dtype=dtype)
+    cell = _moment_edge_ids(case, N, C, g)
+    want = surfel_kernels.moment_segment_sum_plain(pay, cell, C)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    a = surfel_kernels.moment_segment_sum(pay.to(cuda), cell.to(cuda), C,
+                                          site="fuse")
+    b = surfel_kernels.moment_segment_sum(pay.to(cuda), cell.to(cuda), C,
+                                          site="fuse")
+    assert torch.equal(a, b)
+    err = (a.cpu() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item() + (1e-6 if dtype ==
+                                                   torch.float32 else 0.0)
+    if case == "all_out":
+        assert a.abs().max().item() == 0.0
+    pays = torch.stack([pay.roll(i, 1) for i in range(B)]).to(cuda)
+    cells = torch.stack([cell.roll(3 * i) for i in range(B)]).to(cuda)
+    got = _vmapped(lambda p, c: surfel_kernels.moment_segment_sum(
+        p, c, C, site="fuse"), pays, cells)
+    for i in range(B):
+        assert torch.equal(got[i], surfel_kernels.moment_segment_sum(
+            pays[i], cells[i], C, site="fuse"))
+
+
+# The redesigned K3 (one cluster of CTAs per instance) at its edges: N not
+# a multiple of the cluster's columns, N smaller than the cluster, K = 1
+# and K = 32 at the largest N the plan takes; tolerances as above.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("K,N", [(8, 1537), (8, 5), (1, 1536), (32, 2048),
+                                 (8, 8192), (16, 333)])
+def test_sinkhorn_kernel_cluster_edges(cuda, dtype, tol, K, N):
+    x, la, a = _sinkhorn_inputs(K, N, dtype)
+    kw = dict(n_iter=50, ua=UA, vb=VB, log_b=-math.log(K))
+    want = assoc_kernels.sinkhorn_piT(x, la, **kw)
+    got = assoc_kernels.sinkhorn_piT(x.to(cuda), la.to(cuda), **kw)
+    again = assoc_kernels.sinkhorn_piT(x.to(cuda), la.to(cuda), **kw)
+    assert torch.equal(got, again)
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= tol * want.abs().max()
+    if (a == 0).any():
+        assert got[:, a == 0].abs().max() == 0.0
+    xs = torch.stack([x + 0.01 * i for i in range(B)]).to(cuda)
+    las = la.expand(B, -1).to(cuda)
+    bat = _vmapped(lambda p, q: assoc_kernels.sinkhorn_piT(p, q, **kw), xs,
+                   las)
+    for i in range(B):
+        assert torch.equal(bat[i], assoc_kernels.sinkhorn_piT(xs[i], las[i],
+                                                              **kw))
+
+
+def test_sinkhorn_kernel_refuses_more_columns_than_it_holds(cuda):
+    plan = assoc_kernels.sinkhorn_plan(32, 1, 8)
+    x, la, _ = _sinkhorn_inputs(32, plan["max_n"] + 1, torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        assoc_kernels.sinkhorn_piT(x.to(cuda), la.to(cuda), n_iter=1,
+                                   ua=UA, vb=VB, log_b=0.0)
+
+
+def test_moment_kernel_wide_keys(cuda):
+    """C * S >= 2^32 takes the kernel's 64-bit keys; held against
+    ``index_add_`` in f64 on the CPU (the one-hot plain version would not
+    fit) to rounding, 1e-12 of the largest sum."""
+    g = torch.Generator().manual_seed(5)
+    F, N, C = 3, 700, (1 << 24) + 3
+    assert surfel_kernels.moment_plan(F, N, C, 8)["span"] * C >= 1 << 32
+    pay = torch.randn((F, N), generator=g, dtype=torch.float64)
+    cell = torch.randint(-5, C + 5, (N,), generator=g)
+    cell[::3] = C - 1                     # a popular cell at the top
+    keep = (cell >= 0) & (cell < C)
+    want = torch.zeros((C, F), dtype=torch.float64).index_add_(
+        0, cell[keep], pay[:, keep].T).T
+    got = surfel_kernels.moment_segment_sum(pay.to(cuda), cell.to(cuda), C,
+                                            site="surfels").cpu()
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()

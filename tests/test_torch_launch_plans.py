@@ -1,0 +1,329 @@
+"""The Python side of the port's kernel launches, on the CPU: the device
+guard every launch runs under (a mesh of two CUDA devices, faked), the
+reconciliation of ``profile_replay``'s profiler counts with the port's
+launch counters, the launch plans of K3 (the cluster Sinkhorn) and K4 (the
+sorted segment-sum), and the plain versions against the JAX package on the
+edge cases the redesigned kernels are held to on the card.
+"""
+
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fl_slam_tpu.ops import assoc_kernels as j_assoc
+from fl_slam_tpu_torch import cuda_build, profile_replay
+from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
+from fl_slam_tpu_torch.parallel import replicas
+
+MESH = (torch.device("cuda", 0), torch.device("cuda", 1))
+
+
+class _FakeCuda:
+    """Stands in for ``torch.cuda.device`` and ``current_stream``: a stack
+    of current devices, and a stream handle naming its device."""
+
+    def __init__(self):
+        self.current = [0]
+
+    def device(self, dev):
+        fake = self
+
+        class _Guard:
+            def __enter__(self):
+                fake.current.append(torch.device(dev).index)
+
+            def __exit__(self, *exc):
+                fake.current.pop()
+
+        return _Guard()
+
+    def current_stream(self, dev):
+        return type("S", (), {"cuda_stream": 1000 + torch.device(dev).index})
+
+
+class _FakeLib:
+    def fl_error_string(self, rc):
+        return b"fake error"
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    fake = _FakeCuda()
+    monkeypatch.setattr(torch.cuda, "device", fake.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", fake.current_stream)
+    return fake
+
+
+def test_launch_runs_with_its_device_current(fake_cuda):
+    seen = []
+
+    def entry(*args):
+        seen.append((fake_cuda.current[-1], args))
+        return 0
+
+    for dev in MESH:
+        cuda_build.launch(_FakeLib(), entry, "k", dev, 7, 8)
+    assert [s[0] for s in seen] == [0, 1]
+    assert [s[1] for s in seen] == [(7, 8, 1000), (7, 8, 1001)]
+    assert fake_cuda.current == [0]          # restored after each launch
+
+
+def test_launch_raises_on_a_cuda_error(fake_cuda):
+    with pytest.raises(RuntimeError, match="k: CUDA error 9 .fake error."):
+        cuda_build.launch(_FakeLib(), lambda *a: 9, "k", MESH[1])
+    assert fake_cuda.current == [0]
+
+
+def test_each_shard_runs_with_its_device_current(fake_cuda):
+    """A two-card mesh: every kernel launch inside a shard's program sees
+    the shard's device as the current one."""
+    seen = []
+
+    def entry(*args):
+        seen.append(fake_cuda.current[-1])
+        return 0
+
+    def program(state, scans, dev):
+        cuda_build.launch(_FakeLib(), entry, "k", dev)    # a kernel
+        seen.append(("shard", fake_cuda.current[-1]))
+        return state + scans, scans
+
+    states, outs = replicas._pairs(replicas._per_device(
+        program, (1, 2), (10, 20), MESH))
+    assert states == (11, 22) and outs == (10, 20)
+    assert seen == [0, ("shard", 0), 1, ("shard", 1)]
+    assert fake_cuda.current == [0]
+
+
+def test_device_guard_is_a_no_op_for_the_cpu(fake_cuda):
+    with cuda_build.device_guard(torch.device("cpu")):
+        assert fake_cuda.current == [0]
+    out = replicas._per_device(lambda x, dev: x * 2, (3,), ("cpu",))
+    assert out == (6,)
+
+
+def test_every_wrapper_launches_through_the_guard():
+    """No module of the port calls a kernel's C entry point with a stream
+    of its own: each goes through ``cuda_build.launch``."""
+    pkg = Path(cuda_build.__file__).parent
+    callers = []
+    for path in sorted(pkg.rglob("*.py")):
+        src = path.read_text()
+        if path.name == "cuda_build.py":
+            continue
+        assert "current_stream" not in src, path
+        assert "stream_ptr" not in src, path
+        if "cuda_build.library(" in src:
+            assert src.count("cuda_build.launch(") >= src.count(
+                "cuda_build.library("), path
+            callers.append(path.name)
+    assert set(callers) >= {"assoc_kernels.py", "surfel_kernels.py",
+                            "belief_kernels.py", "atlas_kernels.py",
+                            "splat_kernels.py"}
+
+
+# -- profile_replay: the profiler's counts against the port's counters ----
+
+def _zero_counters():
+    return {"assoc_kernels": dict.fromkeys(assoc_kernels.launches, 0),
+            "belief_kernels": {"predict_evidence": 0, "scalar_tail": 0,
+                               "predict_evidence_batched": 0,
+                               "scalar_tail_batched": 0},
+            "surfel_kernels": dict.fromkeys(surfel_kernels.launches, 0),
+            "atlas_kernels": {"exchange_ff": 0, "exchange_ff_batched": 0,
+                              "exchange": 0, "exchange_batched": 0,
+                              "page_gather": 0, "page_writeback": 0}}
+
+
+def _replay_events(n=20):
+    """Profiler keys as torch.profiler names them, for n scans of the
+    kernel-branch replay: K4 at two F (two template instances)."""
+    ns = "void (anonymous namespace)::"
+    return [(f"{ns}pe_kernel<float>(float const*, ...)", n),
+            (f"{ns}tail_kernel<float>(...)", n),
+            (f"{ns}sinkhorn_cluster<float, 8, 1>(...)", n),
+            (f"{ns}moment_sort_reduce<float>(...)", 2 * n),
+            (f"{ns}moment_gather<float>(...)", 2 * n),
+            (f"{ns}exchange_kernel<float, true>(...)", n // 10),
+            (f"{ns}exchange_kernel<float, false>(...)", n // 10),
+            ("void at::native::elementwise_kernel<128, 2>(...)", 999)]
+
+
+def _replay_counters(n=20):
+    c = _zero_counters()
+    c["belief_kernels"].update(predict_evidence=n, scalar_tail=n)
+    c["assoc_kernels"]["sinkhorn_piT"] = n
+    c["surfel_kernels"].update(surfels=n, fuse=n)
+    c["atlas_kernels"]["exchange_ff"] = n // 10
+    return c
+
+
+def test_reconcile_agrees_on_a_replay():
+    rows = profile_replay.reconcile(_replay_events(), _replay_counters())
+    assert {r["name"] for r in rows} == {
+        "pe_kernel", "tail_kernel", "sinkhorn_cluster", "moment_sort_reduce",
+        "moment_gather", "exchange_kernel"}
+    assert all(r["agree"] for r in rows)
+    ex = [r for r in rows if r["name"] == "exchange_kernel"][0]
+    assert ex["profiler"] == ex["port"] == 4     # two launches per count
+
+
+@pytest.mark.parametrize("where", ["profiler", "port"])
+def test_reconcile_flags_a_lost_launch(where):
+    events, counters = _replay_events(), _replay_counters()
+    if where == "profiler":
+        events[3] = (events[3][0], events[3][1] - 1)   # one K4 launch lost
+    else:
+        counters["surfel_kernels"]["fuse"] += 1
+    rows = profile_replay.reconcile(events, counters)
+    bad = [r["name"] for r in rows if not r["agree"]]
+    assert bad == ["moment_sort_reduce"] if where == "profiler" else \
+        bad == ["moment_sort_reduce", "moment_gather"]
+
+
+def test_reconcile_counts_batched_launches_and_kernels_no_one_counted():
+    c = _zero_counters()
+    c["assoc_kernels"]["sinkhorn_piT_batched"] = 5
+    c["atlas_kernels"].update(page_gather=5, page_writeback=5)
+    events = [("void (anonymous namespace)::sinkhorn_cluster<float, 8, 1>()",
+               5),
+              ("void (anonymous namespace)::page_kernel<float, true>()", 5),
+              ("void (anonymous namespace)::page_kernel<float, false>()", 5),
+              ("void (anonymous namespace)::select_kernel<float>()", 2)]
+    rows = {r["name"]: r for r in profile_replay.reconcile(events, c)}
+    assert rows["sinkhorn_cluster"]["agree"] and rows["page_kernel"]["agree"]
+    assert rows["select_kernel"] == {"name": "select_kernel", "profiler": 2,
+                                     "port": 0, "agree": False}
+    assert profile_replay.own_kernel("void foo<float>()") is None
+
+
+def test_own_kernels_name_the_device_symbols_of_the_sources():
+    src = "".join(p.read_text() for p in cuda_build.CSRC.glob("*.cu"))
+    for k in profile_replay.OWN_KERNELS:
+        assert f" {k}(" in src or f"\n{k}(" in src, k
+    assert "moment_partial" not in src and "sinkhorn_kernel" not in src
+
+
+# -- K4: the span and the scratch of the sorted segment-sum --------------
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("F", [11, 32, 64])
+def test_moment_plan_span_fits_shared_memory_by_dtype_and_rows(F, itemsize):
+    plan = surfel_kernels.moment_plan(F, 1 << 16, 5376, itemsize)
+    assert plan["span"] == 256 and plan["spans"] == (1 << 16) // 256
+    assert plan["smem_bytes"] == 256 * (F * itemsize + 16)
+    assert plan["smem_bytes"] <= 227 * 1024 - 8 * 1024   # beside static
+
+
+@pytest.mark.parametrize("F,N", [(11, 8192), (32, 12288), (32, 12289),
+                                 (64, 77), (1, 1), (5, 0)])
+def test_moment_plan_covers_the_ids_with_scratch_of_order_FN(F, N):
+    for itemsize in (4, 8):
+        plan = surfel_kernels.moment_plan(F, N, 8192, itemsize)
+        S, Y = plan["span"], plan["spans"]
+        assert S & (S - 1) == 0 and 32 <= S <= 256
+        assert Y * S >= N and (Y - 1) * S < max(N, 1)
+        assert S <= max(32, 2 * N)               # cut to the ids it has
+        # Scratch: the spans' cells and sums, O(F N), and a first run per
+        # span and 128-cell tile -- no (Y, F, C) block.
+        FP = plan["features_padded"]
+        assert FP >= F and FP * itemsize % 16 == 0 and FP - F < 16 // itemsize
+        assert plan["tiles"] == 8192 // 128 + 1
+        assert plan["scratch_bytes"] <= ((N + S) * (FP * itemsize + 4)
+                                         + 4 * Y * plan["tiles"])
+
+
+def test_moment_plan_refuses_rows_it_cannot_take():
+    with pytest.raises(ValueError, match="payload rows"):
+        surfel_kernels.moment_plan(65, 100, 10, 4)
+    with pytest.raises(ValueError, match="payload rows"):
+        surfel_kernels.moment_plan(0, 100, 10, 4)
+
+
+# -- K3: the cluster, its threads and its refusals ------------------------
+
+def test_sinkhorn_plan_at_the_production_shape():
+    plan = assoc_kernels.sinkhorn_plan(8, 1536, 4)
+    assert plan == {"cluster": 8, "threads": 192, "cols_per_thread": 1,
+                    "cols_per_cta": 192, "k_max": 8, "max_n": 8192,
+                    "smem_bytes": 48 * 8 * 4}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("K", [1, 8, 9, 16, 20, 32])
+def test_sinkhorn_plan_holds_every_column(K, itemsize):
+    """Every N up to the plan's limit gets enough threads. From K = 8 up,
+    every shape the one-block kernel held in (K + 2) N words of shared
+    memory fits; below, 8,192 columns (the one-block kernel held up to
+    18,688 at K = 1 in f32)."""
+    max_n = assoc_kernels.sinkhorn_plan(K, 1, itemsize)["max_n"]
+    old_max = (227 * 1024 - 8 * 1024) // ((K + 2) * itemsize)
+    assert max_n >= (old_max if K >= 8 else 8192)
+    for N in (1, 5, 7, 8, 100, 1000, 1536, 1537, max_n - 1, max_n):
+        plan = assoc_kernels.sinkhorn_plan(K, N, itemsize)
+        T, cpt = plan["threads"], plan["cols_per_thread"]
+        assert T % 32 == 0 and 32 <= T <= 256 and cpt in (1, 2, 4)
+        assert plan["cluster"] == 8 and plan["cols_per_cta"] == -(-N // 8)
+        assert T * cpt >= plan["cols_per_cta"]
+        # potentials in registers: at most 64 32-bit words a thread
+        assert plan["k_max"] * cpt * itemsize // 4 <= 64 or cpt == 1
+        assert plan["k_max"] >= K and plan["smem_bytes"] <= 48 * 1024
+
+
+@pytest.mark.parametrize("K,N,itemsize", [(33, 64, 4), (40, 64, 4),
+                                          (0, 64, 4), (8, 8193, 4),
+                                          (32, 2049, 8), (32, 4097, 4)])
+def test_sinkhorn_plan_refuses_what_it_cannot_hold(K, N, itemsize):
+    with pytest.raises(ValueError, match="shared memory"):
+        assoc_kernels.sinkhorn_plan(K, N, itemsize)
+
+
+# -- the plain versions against the JAX package at the kernels' edges ----
+
+@pytest.mark.parametrize("case", ["one_cell", "all_out", "ragged"])
+def test_moment_plain_matches_segment_sum_at_the_edges(case):
+    """f64 against ``jax.ops.segment_sum`` (1e-12) on the cases the CUDA
+    kernel is held to on the card: every id in one cell, every id out of
+    range, N not a multiple of the span."""
+    rng = np.random.default_rng(len(case))
+    F, N, C = 64, 1025, 40
+    payload = rng.normal(size=(F, N))
+    cell = {"one_cell": np.full(N, 17),
+            "all_out": np.where(rng.uniform(size=N) < 0.5, -1, C),
+            "ragged": rng.integers(-3, C + 3, N)}[case]
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(payload.T),
+                                          jnp.asarray(cell),
+                                          num_segments=C)).T
+    got = surfel_kernels.moment_segment_sum_plain(
+        torch.from_numpy(payload), torch.from_numpy(cell), C).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("K,N", [(1, 96), (8, 5), (8, 137), (32, 64)])
+def test_sinkhorn_plain_matches_jax_kernel_at_the_edges(K, N):
+    """f64 against the JAX kernel in interpret mode (1e-9, the LSE sums in
+    another order) at K = 1, K = 32, N below the cluster's 8 CTAs and N
+    not a multiple of them."""
+    rng = np.random.default_rng(K * 1000 + N)
+    C = rng.uniform(0.0, 2.0, (N, K))
+    C[rng.uniform(size=(N, K)) < 0.1] = 1e12
+    a = rng.uniform(0.1, 1.0, N)
+    a[0] = 0.0
+    a /= a.sum()
+    with np.errstate(divide="ignore"):
+        log_a = np.where(a > 0, np.log(a), -np.inf)
+    logKT = (-C / 0.1).T.copy()
+    kw = dict(n_iter=20, ua=0.5 / 0.6, vb=0.5 / 0.6, log_b=-math.log(K))
+    want = np.asarray(j_assoc.sinkhorn_piT(jnp.asarray(logKT),
+                                           jnp.asarray(log_a), **kw,
+                                           interpret=True))
+    got = assoc_kernels.sinkhorn_piT(torch.from_numpy(logKT),
+                                     torch.from_numpy(log_a), **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
+    assert got[:, 0].max() == 0.0
