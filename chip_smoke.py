@@ -16,9 +16,12 @@ Phases (any failure raises and the script exits non-zero without a result):
      reruns bit for bit, and at their edges (K3: N not a multiple of the
      cluster's columns, N below the cluster, K = 1, K = 32; K4: every id in
      one cell, every id out of range, N not a multiple of the span, f64 at
-     F = 64); K5 in f32; K1/K2 in f32 and f64 on two input sets, seeded SPD
-     operands and the operands captured from one scan of a
-     ``GCConfig.tpu()`` replay;
+     F = 64); K5 in f32; K1/K2 in f32 and f64 on three input sets, seeded
+     SPD operands, the operands captured from one scan of a
+     ``GCConfig.tpu()`` replay and an edge set (condition number 1e7, the
+     first scan of the relative odometry branch, dt = 1e-4 s), reruns bit
+     for bit, and their device us per call, one instance and B = 8, beside
+     the one-block design's;
   4. replay ``GCConfig.tpu()`` (the belief kernels K1/K2 on) and then
      ``GCConfig.tpu(belief_kernel=False)`` over 100 synthetic
      drifting-odometry scans each (seed 3, 10 chunks), each after a
@@ -924,6 +927,42 @@ def _seeded_belief_operands(seed: int):
     return pe, tail
 
 
+def _ill_conditioned_spd(g, n: int, cond: float, scale: float = 1.0):
+    """U diag(scale * cond^(-k/(n-1))) U^T (f64, on the CPU): an SPD matrix
+    whose eigenvalues spread over ``cond``."""
+    import torch
+    f64 = torch.float64
+    U, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=f64))
+    lam = scale * torch.logspace(0.0, -math.log10(cond), n, dtype=f64)
+    A = U @ torch.diag(lam) @ U.T
+    return 0.5 * (A + A.T)
+
+
+# The edge set's configuration: the relative odometry branch.
+EDGE_CFG = dict(odom_pose_relative=True, odom_pose_mix=0.5,
+                odom_pose_rot_scale=0.3)
+
+
+def _edge_belief_operands(seed: int):
+    """K1's and K2's operands at their edges (f64, on the CPU), for
+    ``GCConfig.tpu(**EDGE_CFG)``: K1 with a covariance of condition number
+    1e7 (its last pivots a few eps_lift above the floor of the lift), the
+    first scan of the relative odometry branch and dt = 1e-4 s (the OU
+    predict and the preintegration terms nearly vanish); K2 with a prior
+    information of condition number 1e7."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    pe, tail = _seeded_belief_operands(seed)
+    pe = [t.clone() for t in pe]
+    tail = [t.clone() for t in tail]
+    pe[4] = _ill_conditioned_spd(g, 22, 1e7, 1e-2)   # sigma_prev
+    pk = pe[11]
+    pk[0] = pk[2] = pk[3] = 1e-4                     # dt_sec, dt_int, dt_imu
+    pk[52] = 1.0                                     # first scan
+    tail[0] = _ill_conditioned_spd(g, 22, 1e7, 1e7)  # L_pred
+    return pe, tail
+
+
 def _captured_belief_operands(cfg, n_scans: int = 10):
     """The operands K1 and K2 receive on the last scan of a short
     ``GCConfig.tpu()`` replay (copied on the way in)."""
@@ -980,15 +1019,18 @@ def _belief_work(name: str, itemsize: int):
 
 def check_belief_kernels() -> list:
     """Phase 3, K1 and K2: kernel against plain version (both on the card)
-    in f32 and f64, on seeded and on captured operands."""
+    in f32 and f64, on seeded, captured and edge operands; reruns bit for
+    bit."""
     import torch
     from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.ops import belief_kernels as bk
 
     cfg = GCConfig.tpu()
+    cfg_edge = GCConfig.tpu(**EDGE_CFG)
     dev = torch.device("cuda")
     seeded = _seeded_belief_operands(SEED)
     captured = _captured_belief_operands(cfg)
+    edge = _edge_belief_operands(SEED)
     fns = {"predict_evidence": (bk.predict_evidence_packed, bk.pe_math_plain,
                                 0, "fl_slam_tpu/ops/belief_kernels.py:1344"),
            "scalar_tail": (bk.scalar_tail_packed, bk.tail_math_plain, 1,
@@ -996,13 +1038,18 @@ def check_belief_kernels() -> list:
     rows = []
     for name, (kern, plain, k, replaces) in fns.items():
         checks, timed = [], None
-        for inputs, ops in (("seeded", seeded[k]), ("captured",
-                                                    captured[k])):
+        for inputs, ops, c in (("seeded", seeded[k], cfg),
+                               ("captured", captured[k], cfg),
+                               ("edge", edge[k], cfg_edge)):
             for dt in (torch.float32, torch.float64):
                 x = [t.to(dev, dt) for t in ops]
-                got = kern(cfg, *x)
-                want = plain(cfg, *x)
+                got = kern(c, *x)
+                again = kern(c, *x)
+                want = plain(c, *x)
                 torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{name} ({inputs}): a rerun "
+                                         "differs")
                 abs_err = max((a - b).abs().max().item()
                               for a, b in zip(got, want))
                 rel_err = max(((a - b).abs().max()
@@ -1036,6 +1083,22 @@ def check_belief_kernels() -> list:
             bound_ms=bound, bound_by=by, library_ms=None,
             shape="22x22 belief, f32 (captured operands)", checks=checks))
     return rows
+
+
+# Device us per call of the one-block K1 / K2 (512 threads, ~114 / ~70
+# block barriers), one instance and B = 8, from this script's phase 3 (NVIDIA
+# H100 80GB HBM3, 700.00 W).
+ONE_BLOCK_DEVICE_US = {"predict_evidence": (91.0, 80.0),
+                       "scalar_tail": (92.0, 81.0)}
+
+
+def _print_belief_times(rows) -> None:
+    by = {r["name"]: r for r in rows}
+    for name, (one, eight) in ONE_BLOCK_DEVICE_US.items():
+        print(f"{name}: device us per call {by[name]['device_ms'] * 1e3:.1f} "
+              f"(one-block design {one}), B={N_INST} "
+              f"{by[name + '[batched]']['device_ms'] * 1e3:.1f} "
+              f"(one-block design {eight})", flush=True)
 
 
 def _counters():
@@ -1495,6 +1558,7 @@ def main() -> int:
 
     rows = (check_kernels() + check_belief_kernels()
             + check_batched_kernels() + check_render_select_kernels())
+    _print_belief_times(rows)
     main_run, ds, scans = main_path()
     bcounts = batched_path()
     scounts = select_path(main_run, ds, scans)

@@ -6,8 +6,8 @@
 // are those of fl_slam_tpu_torch/core/se3.py and of the plain versions in
 // fl_slam_tpu_torch/ops/belief_kernels.py, operation for operation where
 // the order changes rounding. The scalar helpers run on one thread; the
-// block helpers (Cholesky, multi-right-hand-side solves) are called by every
-// thread of the block and synchronize it.
+// dense helpers (Cholesky, solves) run at warp scope with the size fixed at
+// compile time, and never synchronize the block.
 #pragma once
 
 #include "common.cuh"
@@ -359,43 +359,128 @@ template <typename T> FL_HD T smooth_nu_clip(T nu_raw, T nu_min, T nu_max) {
   return nu_max - softplus(nu_max - nu_floor);
 }
 
-// ---- block linear algebra -------------------------------------------------
-// Lower Cholesky of the n x n W (row stride n, destroyed) into L by
-// right-looking elimination with the pivot floor sqrt(max(W[k,k], 1e-30)):
-// one element of the trailing block per thread, two barriers per column.
-template <typename T>
-__device__ void block_chol(T* W, T* L, int n, int tid, int nt) {
-  for (int i = tid; i < n * n; i += nt) L[i] = T(0);
-  __syncthreads();
+// ---- warp-scope linear algebra ---------------------------------------------
+// Called by all 32 lanes of one warp; no block barrier. The update order and
+// the pivot floor sqrt(max(W[k,k], 1e-30)) are those of the right-looking
+// elimination of the plain version (ops/belief_kernels.py _chol), and the
+// solves keep its forward-then-back order and its divisions, so each
+// element sees the same sequence of roundings as there.
+//
+// Shape of the code: the kernels' serial paths are bound by instruction
+// fetch as soon as their code is not in the SM's instruction cache, which
+// is the rule in the replay (other kernels run in between). So each step is
+// one short loop body that stays in the cache, and the working row or
+// right-hand side stays in registers: the body always works on w[0..n-1]
+// and shifts the window by one after each step (w[m] is element k + m at
+// step k), so every register index is a compile-time constant.
+constexpr unsigned kFull = 0xffffffffu;
+
+// Lower Cholesky of the symmetric n x n W (row-major, shared memory) into
+// the lower triangle of L, n <= 32. Lane i < n works on row i; step k
+// broadcasts the pivot from lane k and L[k + m, k] from lane k + m.
+template <typename T, int n>
+FL_HD void warp_chol(const T* W, T* L, int lane) {
+  T w[n];
+#pragma unroll
+  for (int m = 0; m < n; ++m) w[m] = lane < n ? W[lane * n + m] : T(0);
+#pragma unroll 1
   for (int k = 0; k < n; ++k) {
-    const T d = m_sqrt(m_max(W[k * n + k], T(1e-30)));
-    for (int i = k + tid; i < n; i += nt) L[i * n + k] = W[i * n + k] / d;
-    __syncthreads();
-    const int m = n - k - 1;
-    for (int e = tid; e < m * m; e += nt) {
-      const int i = k + 1 + e / m, j = k + 1 + e % m;
-      W[i * n + j] = W[i * n + j] - L[i * n + k] * L[j * n + k];
-    }
-    __syncthreads();
+    const T d = m_sqrt(m_max(__shfl_sync(kFull, w[0], k), T(1e-30)));
+    const T lk = w[0] / d;
+    if (lane >= k && lane < n) L[lane * n + k] = lk;
+    T lj[n];  // L[k + m, k]: all shuffles issue before the updates
+#pragma unroll
+    for (int m = 1; m < n; ++m) lj[m] = __shfl_sync(kFull, lk, (k + m) & 31);
+#pragma unroll
+    for (int m = 1; m < n; ++m) w[m - 1] = w[m] - lk * lj[m];
+    w[n - 1] = T(0);
   }
 }
 
-// L L^T x = b for column c of the n x ncols row-major B, in place: forward
-// then back substitution, one thread, in the reference's order.
-template <typename T>
-FL_HD void chol_solve_col(const T* L, int n, T* B, int ncols, int c) {
+// Shared-memory room for a factor that solve_col reads: L starts n elements
+// into a buffer of lbuf_len<n>() elements. The rows past n - 1 and the n
+// elements before row 0 feed only window entries that are shifted out
+// unused, so the solve reads them without bounds checks.
+template <int n> __host__ __device__ constexpr int lbuf_len() {
+  return n + 2 * n * n;
+}
+
+// L L^T x = b for column c of X (n rows, row stride ldx, shared memory), in
+// place, by one thread; L from warp_chol, in an lbuf_len buffer. Rows of b
+// above `first` are zero: the forward steps there change nothing and are
+// skipped.
+template <typename T, int n>
+FL_HD void solve_col(const T* L, T* X, int ldx, int c, int first) {
+  T b[n];
+#pragma unroll
+  for (int m = 0; m < n; ++m)
+    b[m] = first + m < n ? X[(first + m) * ldx + c] : T(0);
+#pragma unroll 1
+  for (int i = first; i < n; ++i) {  // b[m] is row i + m
+    T l[n];  // column i of L, loaded while the division runs
+#pragma unroll
+    for (int m = 0; m < n; ++m) l[m] = L[(i + m) * n + i];
+    const T y = b[0] / l[0];
+#pragma unroll
+    for (int m = 1; m < n; ++m) b[m - 1] = b[m] - l[m] * y;
+    X[i * ldx + c] = y;
+  }
+#pragma unroll
+  for (int m = 0; m < n; ++m) b[m] = X[(n - 1 - m) * ldx + c];
+#pragma unroll 1
+  for (int i = n - 1; i >= 0; --i) {  // b[m] is row i - m
+    T l[n];  // row i of L, loaded while the division runs
+#pragma unroll
+    for (int m = 0; m < n; ++m) l[m] = L[i * n + i - m];
+    const T x = b[0] / l[0];
+#pragma unroll
+    for (int m = 1; m < n; ++m) b[m - 1] = b[m] - l[m] * x;
+    X[i * ldx + c] = x;
+  }
+}
+
+// L L^T x = b for one right-hand side spread over the warp: lane j < n
+// holds b[j]; L from warp_chol. Returns x[lane]. Each step broadcasts one
+// quotient, which every lane computes alike.
+template <typename T, int n>
+FL_HD T warp_solve1(const T* L, T b, int lane) {
+#pragma unroll 1
   for (int i = 0; i < n; ++i) {
-    const T y = B[i * ncols + c] / L[i * n + i];
-    B[i * ncols + c] = y;
-    for (int j = i + 1; j < n; ++j)
-      B[j * ncols + c] = B[j * ncols + c] - L[j * n + i] * y;
+    const T lii = L[i * n + i];
+    const T lji = L[(lane < n ? lane : i) * n + i];
+    const T y = __shfl_sync(kFull, b, i) / lii;
+    if (lane == i) b = y;
+    else if (lane > i && lane < n) b = b - lji * y;
   }
+#pragma unroll 1
   for (int i = n - 1; i >= 0; --i) {
-    const T x = B[i * ncols + c] / L[i * n + i];
-    B[i * ncols + c] = x;
-    for (int j = 0; j < i; ++j)
-      B[j * ncols + c] = B[j * ncols + c] - L[i * n + j] * x;
+    const T lii = L[i * n + i];
+    const T lij = L[i * n + (lane < i ? lane : i)];
+    const T x = __shfl_sync(kFull, b, i) / lii;
+    if (lane == i) b = x;
+    else if (lane < i) b = b - lij * x;
   }
+  return b;
+}
+
+// Named barrier `id` (1-15) of `count` threads, in whole warps: bar_sync
+// waits for all of them; bar_arrive counts the calling warp in and goes on,
+// and its shared-memory writes before it are visible to the threads that
+// waited.
+FL_HD void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+FL_HD void bar_arrive(int id, int count) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// x[0..m-1] of a value spread over a warp (lane j holds x[j]), in every
+// lane.
+template <typename T, int m>
+FL_HD void warp_gather(T v, T (&x)[m]) {
+#pragma unroll
+  for (int j = 0; j < m; ++j) x[j] = __shfl_sync(kFull, v, j);
 }
 
 }  // namespace bk

@@ -91,6 +91,35 @@ def tail_inputs(dtype, seed=0):
     return [np.asarray(a).astype(dtype) for a in args]
 
 
+def _ill_conditioned_spd(rng, n, cond, scale=1.0):
+    """U diag(scale * cond^(-k/(n-1))) U^T: eigenvalues spread over
+    ``cond``."""
+    U, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    A = U @ np.diag(scale * np.logspace(0.0, -np.log10(cond), n)) @ U.T
+    return 0.5 * (A + A.T)
+
+
+def pe_edge_inputs(dtype, seed=0):
+    """K1 at its edges: a covariance of condition number 1e7, the first
+    scan of the relative odometry branch, dt = 1e-4 s (the OU predict and
+    the preintegration terms nearly vanish)."""
+    args = pe_inputs("float64", seed=seed, first_scan=1.0)
+    rng = np.random.default_rng(seed + 100)
+    args[4] = _ill_conditioned_spd(rng, 22, 1e7, 1e-2)
+    pk = args[11].copy()
+    pk[[0, 2, 3]] = 1e-4                         # dt_sec, dt_int, dt_imu
+    args[11] = pk
+    return [a.astype(dtype) for a in args]
+
+
+def tail_edge_inputs(dtype, seed=0):
+    """K2 at its edge: a prior information of condition number 1e7."""
+    args = tail_inputs("float64", seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    args[0] = _ill_conditioned_spd(rng, 22, 1e7, 1e7)
+    return [np.asarray(a).astype(dtype) for a in args]
+
+
 def _rel_err(got, want):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -143,6 +172,30 @@ def test_tail_math_plain_matches_reference(true_atan, dtype):
     port = tbk.tail_math_plain(TCfg.small(dtype=dtype),
                                *[torch.from_numpy(a) for a in args])
     _assert_close(port, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_pe_math_plain_matches_reference_at_edges(true_atan, dtype):
+    """The oracle of K1's edge check on the card, held to the reference."""
+    args = pe_edge_inputs(dtype)
+    ref = _reference(jbk._pe_math_out, JCfg.small(dtype=dtype, **RELATIVE),
+                     args)
+    port = tbk.pe_math_plain(TCfg.small(dtype=dtype, **RELATIVE),
+                             *[torch.from_numpy(a) for a in args])
+    _assert_close(port, ref, TOL[dtype])
+
+
+def test_tail_math_plain_matches_reference_at_edges(true_atan):
+    """The oracle of K2's edge check on the card, held to the reference in
+    f64. (In f32 the barycenter's solve at condition 1e7 carries the
+    rounding of two sum orders past 1e-5 of the published pose: that is
+    the problem's conditioning, not the oracle's error, so f32 is not held
+    to 1e-5 here.)"""
+    args = tail_edge_inputs("float64")
+    ref = _reference(jbk._tail_math, JCfg.small(), args)
+    port = tbk.tail_math_plain(TCfg.small(),
+                               *[torch.from_numpy(a) for a in args])
+    _assert_close(port, ref, TOL["float64"])
 
 
 def test_plain_versions_match_reference_polynomial_atan():

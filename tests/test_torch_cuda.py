@@ -207,6 +207,67 @@ def test_scalar_tail_kernel_matches_plain(cuda, dtype, tol):
     _assert_outputs_close(a, want, tol)
 
 
+def _ill_conditioned_spd(g, n, cond, scale=1.0):
+    """U diag(scale * cond^(-k/(n-1))) U^T: eigenvalues spread over
+    ``cond``."""
+    U, _ = torch.linalg.qr(torch.randn((n, n), generator=g,
+                                       dtype=torch.float64))
+    lam = scale * torch.logspace(0.0, -math.log10(cond), n,
+                                 dtype=torch.float64)
+    A = U @ torch.diag(lam) @ U.T
+    return 0.5 * (A + A.T)
+
+
+def _pe_edge_operands(seed):
+    """K1 at its edges: a covariance of condition number 1e7, the first
+    scan of the relative odometry branch, dt = 1e-4 s."""
+    ops = _pe_operands(seed, 1.0)
+    ops[4] = _ill_conditioned_spd(torch.Generator().manual_seed(seed + 100),
+                                  22, 1e7, 1e-2)
+    ops[11][[0, 2, 3]] = 1e-4                    # dt_sec, dt_int, dt_imu
+    return ops
+
+
+def _tail_edge_operands(seed):
+    """K2 at its edge: a prior information of condition number 1e7."""
+    ops = _tail_operands(seed)
+    ops[0] = _ill_conditioned_spd(torch.Generator().manual_seed(seed + 100),
+                                  22, 1e7, 1e7)
+    return ops
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+def test_predict_evidence_kernel_matches_plain_at_edges(cuda, dtype, tol):
+    """The plain version runs on the card here, as in ``chip_smoke.py``: at
+    dt = 1e-4 the OU diffusion coefficient (1 - exp(-2 lambda dt)) /
+    (2 lambda) cancels, so one ulp of the f32 exp (the card's against the
+    CPU's) moves it ~3e-3 relative, and the ill-conditioned covariance
+    carries that into L_pred."""
+    cfg = GCConfig.tpu(odom_pose_relative=True, odom_pose_mix=0.5,
+                       odom_pose_rot_scale=0.3)
+    ops = [t.to(dtype) for t in _pe_edge_operands(7)]
+    ops_d = [t.to(cuda) for t in ops]
+    want = [w.cpu() for w in belief_kernels.pe_math_plain(cfg, *ops_d)]
+    a = belief_kernels.predict_evidence_packed(cfg, *ops_d)
+    b = belief_kernels.predict_evidence_packed(cfg, *ops_d)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _assert_outputs_close(a, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4),
+                                       (torch.float64, 1e-9)])
+def test_scalar_tail_kernel_matches_plain_at_edges(cuda, dtype, tol):
+    cfg = GCConfig.tpu()
+    ops = [t.to(dtype) for t in _tail_edge_operands(11)]
+    want = belief_kernels.scalar_tail_packed(cfg, *ops)
+    ops_d = [t.to(cuda) for t in ops]
+    a = belief_kernels.scalar_tail_packed(cfg, *ops_d)
+    b = belief_kernels.scalar_tail_packed(cfg, *ops_d)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _assert_outputs_close(a, want, tol)
+
+
 def test_belief_kernels_refuse_mixed_devices(cuda):
     ops = [t.float() for t in _tail_operands(1)]
     with pytest.raises(ValueError, match="operand 17"):
