@@ -21,7 +21,13 @@ Phases (any failure raises and the script exits non-zero without a result):
      ``GCConfig.tpu()`` replay and an edge set (condition number 1e7, the
      first scan of the relative odometry branch, dt = 1e-4 s), reruns bit
      for bit, and their device us per call, one instance and B = 8, beside
-     the one-block design's;
+     the one-block design's; K6 and K9 at their edges (K6 at B = 8: the
+     last page of every slab, int32 offsets, offsets shared by every
+     instance, offsets off the 16-byte grid, f64; K9 in f32 and f64: one
+     chunk, V = 16,640, N not a multiple of the rows per warp, exact ties
+     across the warps' chunks and row groups), reruns bit for bit, and
+     their ms, device us per call, library ms and bound beside the
+     previous designs' (K9's bound also at the non-FMA instruction rate);
   4. replay ``GCConfig.tpu()`` (the belief kernels K1/K2 on) and then
      ``GCConfig.tpu(belief_kernel=False)`` over 100 synthetic
      drifting-odometry scans each (seed 3, 10 chunks), each after a
@@ -76,6 +82,10 @@ SEED = 3
 N_INST = 8                       # instances per card (the reference's B)
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
+# f32 instructions/s outside the tensor cores when no multiply fuses with an
+# add (-fmad=false): each product and each sum is its own instruction, so
+# half the 67 TFLOP/s counted with fused multiply-adds.
+H100_F32_NONFMA_OPS_PER_S = 33.5e12
 # K1/K2 tolerances (max |kernel - plain| over max |plain|, per output). f32:
 # the JAX package's own device-vs-interpret gates for these kernels
 # (tests/test_tpu_kernels.py:95, :144). f64: rounding of reordered sums and
@@ -123,9 +133,10 @@ def _device_ms(fn, reps: int = 20) -> float:
         / 1e3 / reps
 
 
-def _bound_ms(n_bytes: float, n_ops: float):
+def _bound_ms(n_bytes: float, n_ops: float,
+              ops_per_s: float = H100_F32_OPS_PER_S):
     t_b = n_bytes / H100_BYTES_PER_S * 1e3
-    t_o = n_ops / H100_F32_OPS_PER_S * 1e3
+    t_o = n_ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -387,6 +398,60 @@ def _rel_err(got, want) -> float:
                for a, b in zip(got, want))
 
 
+def _page_edges(g, dev, cf: int, S: int, M: int, P: int) -> list:
+    """K6 at B = N_INST at its edges, gather and write-back against the
+    plain version, exactly, each rerun bit for bit: the last page of every
+    slab (the last columns of ff), int32 offsets, one set of offsets shared
+    by every instance (an instance stride of 0), offsets that are not a
+    multiple of 16 bytes (the scalar loop), and f64; one launch per call."""
+    import torch
+    from fl_slam_tpu_torch.structures import atlas_kernels as ak
+    vmap = torch.func.vmap
+    B, npg = N_INST, M // P
+    base = torch.arange(S, device=dev) * M
+    rand = torch.randint(0, npg, (B, S), generator=g, device=dev) * P
+    cases = (("last_page", base + (npg - 1) * P + 0 * rand, torch.float32),
+             ("int32", (base + rand).to(torch.int32), torch.float32),
+             ("shared_offsets", base + rand[0], torch.float32),
+             ("unaligned", base + rand + 3 * (rand < (npg - 1) * P),
+              torch.float32),
+             ("f64", base + rand, torch.float64))
+    out = []
+    for case, offs, dt in cases:
+        ff = torch.randn((B, cf, S * M), generator=g, device=dev).to(dt)
+        upd = torch.randn((B, cf, S * P), generator=g, device=dev).to(dt)
+        o_dim = None if offs.dim() == 1 else 0
+        ob = offs.expand(B, S) if o_dim is None else offs
+
+        def gather():
+            return vmap(lambda f, o: ak.page_gather_ff(f, o, P),
+                        in_dims=(0, o_dim))(ff, offs)
+
+        n0 = ak.launches["page_gather"]
+        got = gather()
+        launched = ak.launches["page_gather"] - n0
+        want = torch.stack([ak.page_gather_ff_plain(ff[b], ob[b], P)
+                            for b in range(B)])
+        ff_k, ff_p = ff.clone(), ff.clone()
+        vmap(lambda f, o, x: ak.page_writeback_ff(f, o, x, P),
+             in_dims=(0, o_dim, 0))(ff_k, offs, upd)
+        for b in range(B):
+            ak.page_writeback_ff_plain(ff_p[b], ob[b], upd[b], P)
+        ff_k2 = ff.clone()
+        vmap(lambda f, o, x: ak.page_writeback_ff(f, o, x, P),
+             in_dims=(0, o_dim, 0))(ff_k2, offs, upd)
+        if launched != 1:
+            raise AssertionError(f"K6 edge {case}: {launched} launches")
+        row = _held("K6 gather edge", got, want, 0.0,
+                    rerun=torch.equal(got, gather()), case=case,
+                    offsets=str(offs.dtype).replace("torch.", ""))
+        wb = _held("K6 write-back edge", ff_k, ff_p, 0.0,
+                   rerun=torch.equal(ff_k, ff_k2))
+        row["writeback_max_abs_err"] = wb["max_abs_err"]
+        out.append(row)
+    return out
+
+
 def check_batched_kernels() -> list:
     """Phase 3, the batched launches at B = N_INST (one kernel for all
     instances under ``torch.func.vmap``: K3/K4 batched, K7 for K1/K2 and the
@@ -609,6 +674,7 @@ def check_batched_kernels() -> list:
     if err != 0.0:
         raise AssertionError(f"K6 gather mismatch {err}")
     bound, by = _bound_ms(nb, 0)
+    edges = _page_edges(g, dev, cf, S, M, Pg)
     rows.append(dict(
         name="page_gather_ff", launch_key="page_gather_ff", route="cuda",
         source="fl_slam_tpu_torch/csrc/page_io.cu",
@@ -619,7 +685,8 @@ def check_batched_kernels() -> list:
         library_ms=_time_ms(k6g_lib), library_device_ms=_device_ms(k6g_lib),
         library="torch.gather under the same vmap",
         library_unbatched_ms=_time_ms(lambda: torch.gather(ff, 2, cols)),
-        shape=f"ff ({B}, {cf}, {S * M}) f32, {S} pages of {Pg}"))
+        shape=f"ff ({B}, {cf}, {S * M}) f32, {S} pages of {Pg}",
+        edges=edges))
     ff_k, ff_p, ff_l = ff.clone(), ff.clone(), ff.clone()
 
     def k6w():
@@ -708,7 +775,10 @@ def _select_work(N: int, V: int, k: int, B: int = 1):
     """(bytes, operations) of K9: a (N, 16) and b (16, V) read once, the
     (N, k) values and indices written once; 16 products and 15 sums and a
     negation per score, 5 comparisons per score for the chunk's top 2, 3
-    per survivor lane and pick for the top k."""
+    per survivor lane and pick for the top k. Over 67 TFLOP/s this is the
+    ``bound_ms`` column of every PR; over the 33.5 T non-FMA instructions/s
+    (``bound_nonfma_ms``) it is the least time of the kernel's separate
+    products and sums."""
     P = -(-2 * (V // 128) // 128) * 128
     return (B * (N * 16 + 16 * V + 2 * N * k) * 4,
             B * (N * V * (32 + 5) + N * P * k * 3))
@@ -733,6 +803,47 @@ def _seeded_scene(n: int, g, dev):
     w = torch.rand((n,), generator=g, device=dev) * 3.0
     val = torch.rand((n,), generator=g, device=dev) > 0.05
     return pos, Lam, etas, col, w, val
+
+
+def _select_edges(g, dev) -> list:
+    """K9 on the factors at its edges, f32 and f64, values and indices
+    exactly the plain version's, each rerun bit for bit: one chunk (V =
+    128), V = 16,640 (P = 384 survivor lanes), N not a multiple of the
+    plan's rows per warp, and exact ties: duplicated view columns in
+    chunks that different warps score, within a chunk, and duplicated
+    rows in different row groups."""
+    import torch
+    from fl_slam_tpu_torch.ops import assoc_kernels as ak
+    out = []
+    for case, N, V, k in (("one_chunk", 256, 128, 8),
+                          ("V16640", 256, 16640, 8),
+                          ("ragged_rows", 1000, 5376, 8),
+                          ("ties_across_warps", 1536, 5376, 8)):
+        for dt in (torch.float32, torch.float64):
+            a = torch.randn((N, 16), generator=g, device=dev).to(dt)
+            b = torch.randn((16, V), generator=g, device=dev).to(dt)
+            if case == "ties_across_warps":
+                b[:, 130:140] = b[:, 3:4]         # chunks 0 and 1
+                b[:, V - 128:V - 120] = b[:, 3:4]  # and the last chunk
+                b[:, 200:228] = b[:, 260:261]     # within and across
+                a[700:710] = a[5]                 # rows of other groups
+            got = ak._select(a, b, k)
+            want = ak.select_topk_plain(a, b, k)
+            again = ak._select(a, b, k)
+            torch.cuda.synchronize()
+            verr = (got[0] - want[0]).abs().max().item()
+            mism = int((got[1] != want[1]).sum().item())
+            rerun = torch.equal(got[0], again[0]) and torch.equal(
+                got[1], again[1])
+            dname = str(dt).replace("torch.", "")
+            if verr != 0.0 or mism or not rerun:
+                raise AssertionError(f"K9 edge {case} ({dname}): values "
+                                     f"{verr}, {mism} indices, rerun "
+                                     f"identical {rerun}")
+            out.append(dict(case=case, N=N, V=V, k=k, dtype=dname,
+                            max_abs_err=verr, index_mismatches=mism,
+                            rerun_identical=rerun))
+    return out
 
 
 def check_render_select_kernels() -> list:
@@ -830,6 +941,12 @@ def check_render_select_kernels() -> list:
     # the ~20 torch ops that build them (the whole select_candidates call).
     a, b = timed
     bound, by = _bound_ms(*_select_work(N, V, k))
+    nonfma, _ = _bound_ms(*_select_work(N, V, k), H100_F32_NONFMA_OPS_PER_S)
+    again = ak._select(a, b, k)
+    first = ak._select(a, b, k)
+    if not (torch.equal(first[0], again[0])
+            and torch.equal(first[1], again[1])):
+        raise AssertionError("K9: a rerun differs")
     rows.append(dict(
         name="select_candidates", launch_key="select_candidates",
         route="cuda", source="fl_slam_tpu_torch/csrc/select.cu",
@@ -841,8 +958,10 @@ def check_render_select_kernels() -> list:
         device_ms=_device_ms(lambda: ak._select(a, b, k)),
         with_factors_ms=_time_ms(lambda: ak.select_candidates(*sel, **kw)),
         plain_ms=_time_ms(lambda: ak.select_topk_plain(a, b, k)),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"a ({N}, 16), b (16, {V}), k={k}, f32", checks=checks))
+        bound_ms=bound, bound_by=by, bound_nonfma_ms=nonfma,
+        library_ms=None, plan=ak.select_plan(N, V, k, 4),
+        shape=f"a ({N}, 16), b (16, {V}), k={k}, f32", checks=checks,
+        edges=_select_edges(g, dev)))
 
     # K9 batched: one launch for N_INST instances (rows rolled per instance).
     B = N_INST
@@ -864,7 +983,12 @@ def check_render_select_kernels() -> list:
                         float((ib[i] != pi).sum().item())))
     if max(errs) != 0.0:
         raise AssertionError(f"K9 batched mismatch {max(errs)}")
+    again = k9b()
+    if not (torch.equal(vb, again[0]) and torch.equal(ib, again[1])):
+        raise AssertionError("K9 batched: a rerun differs")
     bound, by = _bound_ms(*_select_work(N, V, k, B))
+    nonfma, _ = _bound_ms(*_select_work(N, V, k, B),
+                          H100_F32_NONFMA_OPS_PER_S)
     rows.append(dict(
         name="select_candidates[batched]",
         launch_key="select_candidates[batched]", route="cuda",
@@ -875,7 +999,8 @@ def check_render_select_kernels() -> list:
         tolerance=0.0, ms=_time_ms(k9b), device_ms=_device_ms(k9b),
         plain_ms=_time_ms(lambda: [ak.select_topk_plain(A[i], Bm[i], k)
                                    for i in range(B)], reps=3),
-        bound_ms=bound, bound_by=by, library_ms=None,
+        bound_ms=bound, bound_by=by, bound_nonfma_ms=nonfma,
+        library_ms=None,
         shape=f"a ({B}, {N}, 16), b ({B}, 16, {V}), k={k}, f32"))
     del A, Bm, vb, ib
     return rows
@@ -1099,6 +1224,30 @@ def _print_belief_times(rows) -> None:
               f"(one-block design {one}), B={N_INST} "
               f"{by[name + '[batched]']['device_ms'] * 1e3:.1f} "
               f"(one-block design {eight})", flush=True)
+
+
+# The designs of K6 (one block per page row) and K9 (one warp per row, both
+# stages in one kernel) before their redesign: ms per call (CUDA events),
+# device us per call (torch.profiler; K6's then included an int32 cast of
+# the offsets), one instance and B = 8, from this script's phase 3 (NVIDIA
+# H100 80GB HBM3, 700.00 W).
+PREVIOUS_DESIGN = {"page_gather_ff": (0.456, 3.6), "page_writeback_ff":
+                   (0.360, 3.5), "select_candidates": (0.099, 71.0),
+                   "select_candidates[batched]": (0.389, 356.0)}
+
+
+def _print_redesign_times(rows) -> None:
+    by = {r["name"]: r for r in rows}
+    for name, (ms, us) in PREVIOUS_DESIGN.items():
+        r = by[name]
+        extra = (f", bound at the non-FMA rate {r['bound_nonfma_ms']:.4f} ms"
+                 if "bound_nonfma_ms" in r else "")
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f}")
+        print(f"{name}: {r['ms']:.3f} ms (previous design {ms}), device us "
+              f"per call {r['device_ms'] * 1e3:.2f} (previous design {us}), "
+              f"library ms {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){extra}", flush=True)
 
 
 def _counters():
@@ -1559,6 +1708,7 @@ def main() -> int:
     rows = (check_kernels() + check_belief_kernels()
             + check_batched_kernels() + check_render_select_kernels())
     _print_belief_times(rows)
+    _print_redesign_times(rows)
     main_run, ds, scans = main_path()
     bcounts = batched_path()
     scounts = select_path(main_run, ds, scans)

@@ -8,10 +8,13 @@ keyed by the hash of its sources, so an edited source rebuilds. A failed
 build raises with the compiler's output.
 
 Every C entry point launches on the stream it is given, allocates nothing
-and returns ``cudaGetLastError()``. The wrappers call it through ``launch``,
-which makes the operands' device the current one for the call (a launch
-into a stream of a device that is not current fails) and raises on a
-non-zero code.
+and returns ``cudaGetLastError()``. ``library`` sets the ctypes argument
+and result types of every entry point (``ENTRY_POINTS``) once, when it
+loads a library; no wrapper sets them per call. The wrappers call an entry
+point through ``launch``, which passes the current stream's raw handle and
+makes the operands' device the current one for the call where it is not
+(a launch into a stream of a device that is not current fails), and raises
+on a non-zero code.
 """
 
 from __future__ import annotations
@@ -40,6 +43,29 @@ EXTRA_FLAGS = {"predict_evidence": ("-fmad=false",),
                "scalar_tail": ("-fmad=false",),
                "splat_composite": ("-fmad=false",),
                "select": ("-fmad=false",)}
+
+# Each library's C entry points by the codes of their arguments before the
+# stream (p: pointer, i: int, q: 64-bit int, d: double); every entry point
+# returns an int (a cudaError_t) and takes the stream last.
+ENTRY_POINTS = {
+    "sinkhorn": {"sinkhorn_f32": "pppiiiiiiddd", "sinkhorn_f64":
+                 "pppiiiiiiddd"},
+    "moment": {"moment_f32": "ppppppiiiii", "moment_f64": "ppppppiiiii"},
+    "slab_exchange": {"slab_exchange_f32": "pppppppiiiiii",
+                      "slab_exchange_f64": "pppppppiiiiii"},
+    "page_io": {f"page_{k}_{t}": "piqppiiiii" for k in ("gather",
+                                                        "writeback")
+                for t in ("f32", "f64")},
+    "predict_evidence": {"predict_evidence_f32": "p" * 12 + "i",
+                         "predict_evidence_f64": "p" * 12 + "i"},
+    "scalar_tail": {"scalar_tail_f32": "p" * 20 + "i",
+                    "scalar_tail_f64": "p" * 20 + "i"},
+    "splat_composite": {"splat_composite_f32": "ppiii"},
+    "select": {"select_f32": "pppppp" + "i" * 9,
+               "select_f64": "pppppp" + "i" * 9},
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
+           "d": ctypes.c_double}
 
 _LIBS: dict = {}
 
@@ -94,10 +120,20 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        lib.fl_error_string.argtypes = [ctypes.c_int]
-        lib.fl_error_string.restype = ctypes.c_char_p
+        lib = bind(ctypes.CDLL(str(_target(name))), name)
         _LIBS[name] = lib
+    return lib
+
+
+def bind(lib, name: str):
+    """Set the argument and result types of every entry point of library
+    ``name`` (and of its ``fl_error_string``) on ``lib``; returns it."""
+    lib.fl_error_string.argtypes = [ctypes.c_int]
+    lib.fl_error_string.restype = ctypes.c_char_p
+    for entry, codes in ENTRY_POINTS[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [_CTYPES[c] for c in codes] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -120,9 +156,13 @@ def device_guard(device):
 
 def launch(lib: ctypes.CDLL, fn, what: str, device, *args) -> None:
     """Call the C entry point ``fn`` of ``lib`` with ``args`` and the
-    current stream of ``device``, with ``device`` the current device;
-    raises on a non-zero code."""
+    current stream of ``device``, with ``device`` the current device (the
+    guard is entered only where it is not); raises on a non-zero code."""
     import torch
-    with device_guard(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch._C._cuda_getCurrentRawStream   # no Stream object built
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream(device.index))
     check(lib, rc, what)

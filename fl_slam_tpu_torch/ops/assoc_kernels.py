@@ -10,16 +10,15 @@ sizes it) for CUDA tensors and runs the plain version
 (``sinkhorn_piT_plain``, the reference's XLA form with -inf rows) for CPU
 tensors; any other device, or a shape the kernel cannot hold, raises.
 ``select_candidates`` builds the proxy cost's two factors in torch and
-hands them to the op behind K9 (``csrc/select.cu``; plain version
-``select_topk_plain``) the same way. Their instance-batching rules
+hands them to the op behind K9 (``csrc/select.cu``, the chunks' top 2 and
+then the top k, two kernels of one call; ``select_plan`` sizes them; plain
+version ``select_topk_plain``) the same way. Their instance-batching rules
 (``register_vmap``) launch the kernel once for all instances under
 ``torch.func.vmap`` (the reference gets that batching from its grid).
 ``launches`` counts kernel launches, one-instance and batched apart.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -100,9 +99,6 @@ def _launch(logKT, log_a, *, n_iter: int, ua: float, vb: float,
     lib = cuda_build.library("sinkhorn")
     fn = lib.sinkhorn_f32 if logKT.dtype == torch.float32 else \
         lib.sinkhorn_f64
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_double] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     cuda_build.launch(lib, fn, "sinkhorn_piT", logKT.device, logKT.data_ptr(),
                       la.data_ptr(), piT.data_ptr(), B, K, N, plan["threads"],
                       plan["cols_per_thread"], int(n_iter), float(ua),
@@ -223,6 +219,47 @@ def select_topk_plain(a, b, k: int):
     return torch.cat(out_v, 1), torch.cat(out_i, 1)
 
 
+_SMEM_MAX = 232448    # dynamic shared memory a block may use (H100)
+# The layout of csrc/select.cu: kTopkWarps, kRowsPerLane, and each dtype's
+# column stride in the staged chunk (Quad<T>::kStride values).
+_TOPK_WARPS = 4
+_SELECT_ROWS_PER_LANE = 2
+_SELECT_STRIDE = {4: 20, 8: 18}
+
+
+def select_plan(N: int, V: int, k: int, itemsize: int, B: int = 1) -> dict:
+    """K9's launch plan; the wrapper passes its ``grid``, ``lanes``,
+    ``topk_grid`` and ``smem_bytes`` to the entry point, which launches from
+    them. Stage 1 (``select_kernel``): one warp per unit, ``units`` =
+    ``groups`` of ``rows_per_warp`` rows (``rows_per_lane`` per lane) times
+    ``chunks`` of 128 columns per instance (``grid``): block ``u`` scores
+    chunk ``u % chunks`` of row group ``u // chunks`` in
+    ``smem_bytes[0]``. The survivors, 2 per row and chunk, go to a scratch
+    of ``scratch_bytes``. Stage 2 (``select_topk_kernel``): row r on warp
+    ``r % 4`` of block ``r // 4`` (``topk_grid``), over ``lanes`` survivors
+    (the reference's padding to a multiple of 128) in ``smem_bytes[1]``.
+    No cluster. Raises on what the kernel cannot take."""
+    if V <= 0 or V % _CHUNK or N <= 0 or k <= 0 or not 1 <= B <= 65535:
+        raise ValueError(f"select_candidates: N={N}, V={V}, k={k}, B={B}: "
+                         "the kernel takes V a positive multiple of 128, "
+                         "N, k > 0 and 1 <= B <= 65535")
+    C = V // _CHUNK
+    R = _SELECT_ROWS_PER_LANE
+    G = -(-N // (32 * R))
+    P = -(-2 * C // 128) * 128
+    smem = (_CHUNK * _SELECT_STRIDE[itemsize] * itemsize,
+            _TOPK_WARPS * P * (itemsize + 4))
+    if max(smem) > _SMEM_MAX:
+        raise ValueError(f"select_candidates: V={V} needs {max(smem)} B of "
+                         f"shared memory per block, more than {_SMEM_MAX}")
+    return {"chunks": C, "lanes": P, "rows_per_lane": R,
+            "rows_per_warp": 32 * R, "groups": G, "units": G * C,
+            "warps": 1, "threads": 32, "cluster": 1, "grid": (G * C, B),
+            "topk_grid": (-(-N // _TOPK_WARPS), B),
+            "smem_bytes": smem,
+            "scratch_bytes": B * N * 2 * C * (itemsize + 4)}
+
+
 def _select_launch(a, b, k: int, key: str):
     """The kernel on (B, N, 16) ``a`` and (B, 16, V) ``b``: a grid axis over
     the instances."""
@@ -232,21 +269,25 @@ def _select_launch(a, b, k: int, key: str):
         raise ValueError(f"select_candidates: dtypes {a.dtype}, {b.dtype}")
     B, N, F = a.shape
     V = b.shape[2]
-    if tuple(b.shape) != (B, F, V) or F != 16:
+    if b.shape != (B, F, V) or F != 16:
         raise ValueError(f"select_candidates: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}")
+    plan = select_plan(N, V, k, a.element_size(), B)
     a = a.contiguous()
     b = b.contiguous()
+    sv = torch.empty((B, N, 2 * plan["chunks"]), dtype=a.dtype,
+                     device=a.device)
+    si = torch.empty((B, N, 2 * plan["chunks"]), dtype=torch.int32,
+                     device=a.device)
     vals = torch.empty((B, N, k), dtype=a.dtype, device=a.device)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=a.device)
     lib = cuda_build.library("select")
     fn = lib.select_f32 if a.dtype == torch.float32 else lib.select_f64
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     cuda_build.launch(lib, fn, "select_candidates", a.device, a.data_ptr(),
-                      b.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, N, V,
-                      k)
+                      b.data_ptr(), sv.data_ptr(), si.data_ptr(),
+                      vals.data_ptr(), idx.data_ptr(), B, N, V, k,
+                      plan["grid"][0], plan["lanes"], plan["topk_grid"][0],
+                      *plan["smem_bytes"])
     launches[key] += 1
     return vals, idx
 

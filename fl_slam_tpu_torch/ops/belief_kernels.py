@@ -772,9 +772,6 @@ def _launch(name, params, ins, n_out, key):
     lib = cuda_build.library(name)
     fn = getattr(lib, f"{name}_f32" if like.dtype == torch.float32
                  else f"{name}_f64")
-    fn.argtypes = ([ctypes.c_void_p] * (len(ins) + 1)
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     ins = [t.contiguous() for t in ins]
     out = torch.empty((B, n_out), dtype=like.dtype, device=like.device)
     cuda_build.launch(lib, fn, name, like.device,

@@ -15,7 +15,6 @@ them) and counts one: ``launches[site]`` per call site,
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -87,9 +86,6 @@ def _launch(payload, cell, n_cells: int, key: str):
     out = torch.empty((B, F, n_cells), dtype=payload.dtype, device=dev)
     lib = cuda_build.library("moment")
     fn = lib.moment_f32 if payload.dtype == torch.float32 else lib.moment_f64
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     cuda_build.launch(lib, fn, "moment_segment_sum", dev, payload.data_ptr(),
                       cell32.data_ptr(), ucell.data_ptr(), tile_lo.data_ptr(),
                       usum.data_ptr(), out.data_ptr(), B, F, N, n_cells, S)

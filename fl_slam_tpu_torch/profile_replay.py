@@ -35,7 +35,8 @@ N_REPS = 3
 # The port's hand-written kernels (csrc/) by their device symbol, each with
 # the launch counters (module, key, device launches per count) that count
 # it: an exchange is two launches (flush, then gather) counted once; K4 is
-# two kernels (sort-and-reduce, then gather) counted once.
+# two kernels (sort-and-reduce, then gather) counted once, and so is K9
+# (the chunks' top 2, then the top k).
 _K4_KEYS = ("surfels", "fuse", "surfels_batched", "fuse_batched")
 KERNEL_COUNTERS = {
     "pe_kernel": (("belief_kernels", "predict_evidence", 1),
@@ -53,6 +54,8 @@ KERNEL_COUNTERS = {
                     ("atlas_kernels", "page_writeback", 1)),
     "select_kernel": (("assoc_kernels", "select_candidates", 1),
                       ("assoc_kernels", "select_candidates_batched", 1)),
+    "select_topk_kernel": (("assoc_kernels", "select_candidates", 1),
+                           ("assoc_kernels", "select_candidates_batched", 1)),
 }
 OWN_KERNELS = tuple(KERNEL_COUNTERS)
 

@@ -19,7 +19,6 @@ Parameter row per splat (16 lanes): 0 u, 1 v, 2 Sinv00, 3 Sinv01,
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -84,9 +83,6 @@ def _launch(params, n_tx: int):
                       device=params.device)
     lib = cuda_build.library("splat_composite")
     fn = lib.splat_composite_f32
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     cuda_build.launch(lib, fn, "splat_composite", params.device,
                       params.data_ptr(), out.data_ptr(), T, K, n_tx)
     launches["splat_composite"] += 1

@@ -13,8 +13,9 @@ the page IO of the resident slabs (port of the TPU kernels of
   exchange on row-major slabs (S, CF, M) / (S, M). The pipeline does not
   call it.
 - K6 ``page_gather_ff`` / ``page_writeback_ff`` (``:554`` / ``:568``): the
-  S contiguous (CF, P) column blocks of ``ff`` at device offsets, gathered,
-  or written back in place; the dense-page insert runs them.
+  S contiguous (CF, P) column blocks of ``ff`` at device offsets (int32 or
+  int64, read as they are), gathered, or written back in place; the
+  dense-page insert runs them.
 
 Each is a ``torch.library.custom_op`` with an instance-batching rule
 (``register_vmap``): CUDA tensors launch the hand-written kernel
@@ -25,8 +26,6 @@ exchange is two launches on one stream (flush, then gather) and counts one.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -131,9 +130,6 @@ def _launch_exchange(pool_f, pool_p, slab_f, slab_p, old_slots, new_slots,
     lib = cuda_build.library("slab_exchange")
     fn = lib.slab_exchange_f32 if slab_f.dtype == torch.float32 else \
         lib.slab_exchange_f64
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     cuda_build.launch(lib, fn, key, pool_f.device, flag.data_ptr(),
                       olds.data_ptr(), news.data_ptr(), pool_f.data_ptr(),
                       pool_p.data_ptr(), slab_f.data_ptr(), slab_p.data_ptr(),
@@ -141,30 +137,45 @@ def _launch_exchange(pool_f, pool_p, slab_f, slab_p, old_slots, new_slots,
     launches[key] += 1
 
 
+def page_launch_args(name: str, ff, offs, page, P: int) -> tuple:
+    """K6's C arguments but the stream for (B, CF, SM) ``ff``, (B, S)
+    ``offs`` and (B, CF, S*P) ``page``: the offsets are read as the caller
+    made them (int32 or int64, flagged; no cast launch), with their instance
+    stride (0 where one set is shared, as ``vmap`` broadcasts it). Raises on
+    what the kernel does not take."""
+    B, CF, SM = ff.shape
+    S = offs.shape[1]
+    if (offs.shape[0] != B or page.shape != (B, CF, S * P)
+            or page.dtype != ff.dtype or page.device != ff.device
+            or offs.device != ff.device):
+        raise ValueError(f"{name}: shapes do not match")
+    if ff.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: dtype {ff.dtype}")
+    if offs.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: offsets {offs.dtype}")
+    if not (ff.is_contiguous() and page.is_contiguous()):
+        raise ValueError(f"{name}: ff and the page block must be contiguous "
+                         "with the instance axis first")
+    if S > 1 and offs.stride(1) != 1:
+        raise ValueError(f"{name}: the offsets must be contiguous along the "
+                         "pages")
+    return (offs.data_ptr(), int(offs.dtype == torch.int64),
+            offs.stride(0) if B > 1 else 0, ff.data_ptr(), page.data_ptr(),
+            B, CF, SM, S, P)
+
+
 def _launch_page(kind: str, ff, offs, page, P: int):
     """K6 on (B, CF, SM) ``ff``, (B, S) ``offs`` and (B, CF, S*P) ``page``."""
     name = f"page_{kind}_ff"
     if ff.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ff.device}")
-    B, CF, SM = ff.shape
-    S = offs.shape[1]
-    if (tuple(offs.shape) != (B, S) or tuple(page.shape) != (B, CF, S * P)
-            or page.dtype != ff.dtype or page.device != ff.device):
-        raise ValueError(f"{name}: shapes do not match")
-    if ff.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"{name}: dtype {ff.dtype}")
-    if not (ff.is_contiguous() and page.is_contiguous()):
-        raise ValueError(f"{name}: ff and the page block must be contiguous "
-                         "with the instance axis first")
-    offs32 = offs.to(torch.int32).contiguous()
+    if offs.shape[1] > 1 and offs.stride(1) != 1:
+        offs = offs.contiguous()
+    args = page_launch_args(name, ff, offs, page, P)
     lib = cuda_build.library("page_io")
     fn = getattr(lib, f"page_{kind}_"
                  + ("f32" if ff.dtype == torch.float32 else "f64"))
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cuda_build.launch(lib, fn, name, ff.device, offs32.data_ptr(),
-                      ff.data_ptr(), page.data_ptr(), B, CF, SM, S, P)
+    cuda_build.launch(lib, fn, name, ff.device, *args)
     launches[f"page_{kind}"] += 1
 
 

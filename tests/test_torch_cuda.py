@@ -511,6 +511,132 @@ def test_batched_select_is_the_single_kernel_per_instance(cuda):
         assert torch.equal(bv[b], v) and torch.equal(bi[b], i)
 
 
+def _factors(N, V, dtype, seed, ties=False):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((N, 16), generator=g, dtype=dtype)
+    b = torch.randn((16, V), generator=g, dtype=dtype)
+    if ties:
+        b[:, 130:140] = b[:, 3:4]           # chunks scored by other warps
+        b[:, V - 128:V - 120] = b[:, 3:4]
+        b[:, 200:228] = b[:, 260:261]       # within and across chunks
+        a[N // 2:N // 2 + 10] = a[5]        # rows of other row groups
+    return a, b
+
+
+# N = 1000 is no multiple of the plan's rows per warp; V = 128 is one chunk;
+# V = 16,640 has 384 survivor lanes.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,V,ties", [(256, 128, False), (256, 16640, False),
+                                      (1000, 5376, False),
+                                      (1536, 5376, True)])
+def test_select_kernel_edges_match_plain(cuda, dtype, N, V, ties):
+    a, b = _factors(N, V, dtype, N + V, ties)
+    want = assoc_kernels.select_topk_plain(a, b, 8)
+    got = assoc_kernels._select(a.to(cuda), b.to(cuda), 8)
+    again = assoc_kernels._select(a.to(cuda), b.to(cuda), 8)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+# The entry point launches from the plan, and refuses one that leaves a
+# (row group, chunk) unit or a row unscored, or a kernel short of shared
+# memory; the launch it refuses runs nothing.
+@pytest.mark.parametrize("short", ["units", "lanes", "topk", "smem"])
+def test_select_kernel_refuses_a_short_plan(cuda, monkeypatch, short):
+    a, b = _factors(1000, 1024, torch.float32, 3)
+    plan = assoc_kernels.select_plan(1000, 1024, 8, 4)
+    bad = dict(plan)
+    if short == "units":
+        bad["grid"] = (plan["grid"][0] - 1, 1)
+    elif short == "lanes":
+        bad["lanes"] = 2 * plan["chunks"] - 1
+    elif short == "topk":
+        bad["topk_grid"] = (plan["topk_grid"][0] - 1, 1)
+    else:
+        bad["smem_bytes"] = (plan["smem_bytes"][0] - 4,
+                             plan["smem_bytes"][1])
+    monkeypatch.setattr(assoc_kernels, "select_plan", lambda *x: bad)
+    with pytest.raises(RuntimeError, match="select_candidates: CUDA error"):
+        assoc_kernels._select(a.to(cuda), b.to(cuda), 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_select_at_eight_instances_is_each_single(cuda, dtype):
+    ab = [_factors(1536, 5376, dtype, s, ties=s % 2 == 0) for s in range(8)]
+    A = torch.stack([x[0] for x in ab]).to(cuda)
+    Bm = torch.stack([x[1] for x in ab]).to(cuda)
+    before = assoc_kernels.launches["select_candidates_batched"]
+    bv, bi = torch.func.vmap(lambda x, y: assoc_kernels._select(x, y, 8))(
+        A, Bm)
+    assert assoc_kernels.launches["select_candidates_batched"] == before + 1
+    for i in range(8):
+        v, j = assoc_kernels._select(A[i], Bm[i], 8)
+        pv, pj = assoc_kernels.select_topk_plain(A[i], Bm[i], 8)
+        assert torch.equal(bv[i], v) and torch.equal(bi[i], j)
+        assert torch.equal(v, pv) and torch.equal(j, pj)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("odt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("nb", [1, 8])
+def test_page_io_kernel_edges_match_plain(cuda, dtype, odt, nb):
+    """K6 at the last page of every slab and at random pages, int32 and
+    int64 offsets, one launch per call, exactly the plain version."""
+    g = torch.Generator().manual_seed(nb)
+    CF, S, M, P = 32, 7, 1024, 128
+    ff = torch.randn((nb, CF, S * M), generator=g, dtype=dtype)
+    upd = torch.randn((nb, CF, S * P), generator=g, dtype=dtype)
+    for last in (True, False):
+        page = (torch.full((nb, S), M // P - 1) if last
+                else torch.randint(0, M // P, (nb, S), generator=g))
+        offs = (torch.arange(S) * M + page * P).to(odt)
+        fn = lambda f, o: atlas_kernels.page_gather_ff(f, o, P)  # noqa: E731
+        want = torch.stack([atlas_kernels.page_gather_ff_plain(
+            ff[b], offs[b], P) for b in range(nb)])
+        before = atlas_kernels.launches["page_gather"]
+        got = _vmapped(fn, ff.to(cuda), offs.to(cuda))
+        assert atlas_kernels.launches["page_gather"] == before + 1
+        assert torch.equal(got.cpu(), want)
+        want_w = ff.clone()
+        for b in range(nb):
+            atlas_kernels.page_writeback_ff_plain(want_w[b], offs[b], upd[b],
+                                                  P)
+        got_w = ff.to(cuda)
+        before = atlas_kernels.launches["page_writeback"]
+        _vmapped(lambda f, o, u: atlas_kernels.page_writeback_ff(f, o, u, P),
+                 got_w, offs.to(cuda), upd.to(cuda))
+        assert atlas_kernels.launches["page_writeback"] == before + 1
+        assert torch.equal(got_w.cpu(), want_w)
+
+
+def test_page_io_kernel_skips_pages_outside_the_slabs(cuda):
+    """A page whose columns leave [0, SM): the gather writes zeros for it,
+    the write-back leaves ff as it is (the reference kernel's skip)."""
+    CF, S, M, P = 32, 3, 512, 128
+    ff = torch.randn((2, CF, S * M), device=cuda)
+    offs = torch.tensor([[0, -P, S * M - P + 1], [S * M, 128, 301]],
+                        device=cuda)
+    got = _vmapped(lambda f, o: atlas_kernels.page_gather_ff(f, o, P), ff,
+                   offs)
+    for b, row in enumerate(offs.tolist()):
+        for s, o in enumerate(row):
+            blk = got[b, :, s * P:(s + 1) * P]
+            if 0 <= o <= S * M - P:
+                assert torch.equal(blk, ff[b, :, o:o + P])
+            else:
+                assert not blk.any()
+    upd = torch.randn((2, CF, S * P), device=cuda)
+    got_w = ff.clone()
+    _vmapped(lambda f, o, u: atlas_kernels.page_writeback_ff(f, o, u, P),
+             got_w, offs, upd)
+    want = ff.clone()
+    want[0, :, 0:P] = upd[0, :, 0:P]
+    want[1, :, 128:128 + P] = upd[1, :, P:2 * P]
+    want[1, :, 301:301 + P] = upd[1, :, 2 * P:3 * P]    # scalar loop
+    assert torch.equal(got_w, want)
+
+
 def _scene(n, seed):
     g = torch.Generator().manual_seed(seed)
     pos = torch.randn((n, 3), generator=g) * torch.tensor([8.0, 6.0, 0.5])

@@ -1,12 +1,16 @@
 """The Python side of the port's kernel launches, on the CPU: the device
 guard every launch runs under (a mesh of two CUDA devices, faked), the
-reconciliation of ``profile_replay``'s profiler counts with the port's
-launch counters, the launch plans of K3 (the cluster Sinkhorn) and K4 (the
-sorted segment-sum), and the plain versions against the JAX package on the
-edge cases the redesigned kernels are held to on the card.
+entry points' ctypes types set once at load, the reconciliation of
+``profile_replay``'s profiler counts with the port's launch counters, the
+launch plans of K3 (the cluster Sinkhorn), K4 (the sorted segment-sum) and
+K9 (the candidate selection), K6's launch arguments, and the plain versions
+against the JAX package on the edge cases the redesigned kernels are held
+to on the card.
 """
 
+import ctypes
 import math
+import re
 from pathlib import Path
 
 import numpy as np
@@ -20,16 +24,21 @@ from fl_slam_tpu.ops import assoc_kernels as j_assoc
 from fl_slam_tpu_torch import cuda_build, profile_replay
 from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
 from fl_slam_tpu_torch.parallel import replicas
+from fl_slam_tpu_torch.structures import atlas_kernels
 
 MESH = (torch.device("cuda", 0), torch.device("cuda", 1))
 
 
 class _FakeCuda:
-    """Stands in for ``torch.cuda.device`` and ``current_stream``: a stack
-    of current devices, and a stream handle naming its device."""
+    """Stands in for ``torch.cuda.device``, ``current_device`` and
+    ``torch._C._cuda_getCurrentRawStream``: a stack of current devices, and
+    a raw stream handle naming its device."""
 
     def __init__(self):
         self.current = [0]
+
+    def current_device(self):
+        return self.current[-1]
 
     def device(self, dev):
         fake = self
@@ -43,8 +52,8 @@ class _FakeCuda:
 
         return _Guard()
 
-    def current_stream(self, dev):
-        return type("S", (), {"cuda_stream": 1000 + torch.device(dev).index})
+    def raw_stream(self, index):
+        return 1000 + index
 
 
 class _FakeLib:
@@ -56,7 +65,9 @@ class _FakeLib:
 def fake_cuda(monkeypatch):
     fake = _FakeCuda()
     monkeypatch.setattr(torch.cuda, "device", fake.device)
-    monkeypatch.setattr(torch.cuda, "current_stream", fake.current_stream)
+    monkeypatch.setattr(torch.cuda, "current_device", fake.current_device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        fake.raw_stream, raising=False)
     return fake
 
 
@@ -126,6 +137,91 @@ def test_every_wrapper_launches_through_the_guard():
     assert set(callers) >= {"assoc_kernels.py", "surfel_kernels.py",
                             "belief_kernels.py", "atlas_kernels.py",
                             "splat_kernels.py"}
+
+
+# -- the entry points' ctypes types, set once when a library is loaded ----
+
+class _Entry:
+    argtypes = None
+    restype = None
+
+
+class _Lib:
+    def __init__(self, names):
+        for n in ("fl_error_string", *names):
+            setattr(self, n, _Entry())
+
+
+def test_every_entry_point_gets_its_types_at_load():
+    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "q": ctypes.c_longlong, "d": ctypes.c_double}
+    for name in cuda_build.SOURCES:
+        entries = cuda_build.ENTRY_POINTS[name]
+        lib = cuda_build.bind(_Lib(entries), name)
+        assert lib.fl_error_string.argtypes == [ctypes.c_int]
+        for entry, sig in entries.items():
+            fn = getattr(lib, entry)
+            assert fn.argtypes == [codes[c] for c in sig] + [ctypes.c_void_p]
+            assert fn.restype is ctypes.c_int
+    assert set(cuda_build.ENTRY_POINTS) == set(cuda_build.SOURCES)
+
+
+def _c_code(param: str) -> str:
+    """The argument code of one C parameter declaration."""
+    if "*" in param:
+        return "p"
+    words = param.split()[:-1]
+    return {("int",): "i", ("long", "long"): "q",
+            ("double",): "d"}[tuple(words)]
+
+
+def _c_entry_points(src: str) -> dict:
+    """extern "C" entry points of a source and their argument codes (the
+    stream last, left out), through the FL_*_ENTRY macros too."""
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        params = [p.strip() for p in m.group(2).replace("\\", " ").split(",")]
+        assert params[-1].split() == ["void*", "stream"], m.group(1)
+        codes = "".join(_c_code(p) for p in params[:-1])
+        name = m.group(1)
+        if name == "NAME":
+            macro = src[:m.start()].rsplit("#define ", 1)[1].split("(")[0]
+            for inv in re.finditer(rf"^{macro}\((\w+),", src, re.M):
+                out[inv.group(1)] = codes
+        elif name != "fl_error_string":
+            out[name] = codes
+    return out
+
+
+def test_entry_point_codes_match_the_c_declarations():
+    for name in cuda_build.SOURCES:
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        declared = _c_entry_points(src)
+        assert declared, name
+        assert cuda_build.ENTRY_POINTS[name] == declared, name
+
+
+def test_no_wrapper_sets_types_per_call():
+    pkg = Path(cuda_build.__file__).parent
+    for mod in ("ops/assoc_kernels.py", "ops/surfel_kernels.py",
+                "ops/belief_kernels.py", "structures/atlas_kernels.py",
+                "render/splat_kernels.py", "parallel/replicas.py"):
+        src = (pkg / mod).read_text()
+        assert ".argtypes" not in src and ".restype" not in src, mod
+
+
+def test_launch_enters_the_guard_only_off_the_current_device(fake_cuda,
+                                                             monkeypatch):
+    entered = []
+    real = fake_cuda.device
+
+    def device(dev):
+        entered.append(torch.device(dev).index)
+        return real(dev)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    for dev in (MESH[0], MESH[0], MESH[1]):
+        cuda_build.launch(_FakeLib(), lambda *a: 0, "k", dev)
+    assert entered == [1]
 
 
 # -- profile_replay: the profiler's counts against the port's counters ----
@@ -282,6 +378,101 @@ def test_sinkhorn_plan_holds_every_column(K, itemsize):
 def test_sinkhorn_plan_refuses_what_it_cannot_hold(K, N, itemsize):
     with pytest.raises(ValueError, match="shared memory"):
         assoc_kernels.sinkhorn_plan(K, N, itemsize)
+
+
+# -- K9: every chunk scored once, every row picked by one warp -----------
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("N,V", [(128, 128), (128, 256), (1536, 5376),
+                                 (256, 16640), (1536, 7168)])
+def test_select_plan_scores_every_chunk_once(N, V, B):
+    for itemsize in (4, 8):
+        plan = assoc_kernels.select_plan(N, V, 8, itemsize, B)
+        C = plan["chunks"]
+        assert C == V // 128 and plan["grid"] == (plan["units"], B)
+        # Stage 1: block u, one warp, scores chunk u % C of row group u // C.
+        seen = [divmod(u, C) for u in range(plan["grid"][0])]
+        assert len(seen) == len(set(seen)) == plan["groups"] * C
+        assert set(seen) == {(g, c) for g in range(plan["groups"])
+                             for c in range(C)}
+        assert plan["warps"] == 1 and plan["threads"] == 32
+        # Every row in exactly one group, one lane's row of one warp.
+        R = plan["rows_per_lane"]
+        assert plan["rows_per_warp"] == 32 * R
+        assert (plan["groups"] - 1) * 32 * R < N <= plan["groups"] * 32 * R
+        # Stage 2: row r on warp r % 4 of block r // 4.
+        assert plan["topk_grid"] == (-(-N // 4), B)
+        assert plan["cluster"] <= 8
+        assert all(b <= 232448 for b in plan["smem_bytes"])
+        assert plan["lanes"] % 128 == 0
+        assert 2 * C <= plan["lanes"] < 2 * C + 128
+        assert plan["scratch_bytes"] == B * N * 2 * C * (itemsize + 4)
+
+
+@pytest.mark.parametrize("itemsize,ctype", [(4, "float"), (8, "double")])
+def test_select_plan_matches_the_kernel_layout(itemsize, ctype):
+    """The plan's constants are those of ``csrc/select.cu``, which launches
+    from the plan: its rows per lane, stage-2 warps and staged column
+    stride, so a plan the kernel takes covers every row and chunk."""
+    src = (cuda_build.CSRC / "select.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    quad = re.search(rf"struct Quad<{ctype}> {{\s*static constexpr int "
+                     r"kPer = (\d+), kQuads = (\d+), kStride = (\d+);", src)
+    per, quads, stride = map(int, quad.groups())
+    assert per * quads == 16 and per * itemsize == 16
+    N, V = 1000, 16640
+    plan = assoc_kernels.select_plan(N, V, 8, itemsize)
+    assert const("kChunk") == 128 and const("kFeat") == 16
+    assert plan["rows_per_lane"] == const("kRowsPerLane")
+    assert plan["topk_grid"][0] * const("kTopkWarps") >= N
+    assert plan["smem_bytes"] == (128 * stride * itemsize, const(
+        "kTopkWarps") * plan["lanes"] * (itemsize + 4))
+
+
+@pytest.mark.parametrize("N,V,k,B", [(128, 200, 8, 1), (128, 0, 8, 1),
+                                     (0, 128, 8, 1), (128, 128, 0, 1),
+                                     (128, 128, 8, 0), (128, 128, 8, 65536),
+                                     (128, 128 * 2500, 8, 1)])
+def test_select_plan_refuses_what_it_cannot_take(N, V, k, B):
+    with pytest.raises(ValueError, match="select_candidates"):
+        assoc_kernels.select_plan(N, V, k, 8, B)
+
+
+# -- K6: the launch arguments at the batched replay's shape --------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("odt", [torch.int32, torch.int64])
+def test_page_launch_args_at_the_batched_shape(dtype, odt):
+    B, CF, S, M, P = 8, 32, 7, 1024, 128
+    ff = torch.zeros((B, CF, S * M), dtype=dtype)
+    page = torch.zeros((B, CF, S * P), dtype=dtype)
+    offs = (torch.arange(S) * M).to(odt).expand(B, S)    # shared: stride 0
+    args = atlas_kernels.page_launch_args("k", ff, offs, page, P)
+    assert args[1:3] == (int(odt == torch.int64), 0)
+    assert args[0] == offs.data_ptr() and args[3:5] == (ff.data_ptr(),
+                                                        page.data_ptr())
+    assert args[5:] == (B, CF, S * M, S, P)
+    per = (torch.arange(B * S).reshape(B, S) * 128).to(odt)
+    args = atlas_kernels.page_launch_args("k", ff, per, page, P)
+    assert args[2] == S                       # the instances' own offsets
+    one = atlas_kernels.page_launch_args("k", ff[:1], per[:1], page[:1], P)
+    assert one[2] == 0 and one[5] == 1
+
+
+def test_page_launch_args_refuse_what_the_kernel_does_not_take():
+    ff = torch.zeros((2, 4, 512))
+    page = torch.zeros((2, 4, 256))
+    offs = torch.zeros((2, 2), dtype=torch.int64)
+    for bad in (dict(offs=offs.to(torch.int16)), dict(ff=ff.half()),
+                dict(page=torch.zeros((2, 4, 128))),
+                dict(ff=ff.transpose(1, 2).contiguous().transpose(1, 2)),
+                dict(offs=torch.zeros((2, 4), dtype=torch.int64)[:, ::2])):
+        kw = dict(ff=ff, offs=offs, page=page) | bad
+        with pytest.raises(ValueError, match="k: "):
+            atlas_kernels.page_launch_args("k", kw["ff"], kw["offs"],
+                                           kw["page"], 128)
 
 
 # -- the plain versions against the JAX package at the kernels' edges ----

@@ -108,8 +108,12 @@ def _assert_match(j, t, cost, k, scale):
 
 
 @pytest.mark.parametrize("N,V,k,seed", [(128, 1536, 8, 0), (256, 896, 4, 1),
-                                        (128, 256, 4, 2)])
+                                        (128, 256, 4, 2), (128, 8192, 8, 4),
+                                        (128, 8320, 8, 5),
+                                        (128, 16640, 8, 6)])
 def test_select_plain_matches_jax_interpret(N, V, k, seed):
+    """Also at the survivor padding's edges: 2 V / 128 = 128 lanes with no
+    pad (V = 8,192), 130 of 256 (V = 8,320) and 260 of 384 (V = 16,640)."""
     x = _inputs(N, V, seed)
     _assert_match(*_both(*x, k), _proxy_cost(*x), k, _scale(x[0], x[3]))
 
