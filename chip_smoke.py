@@ -55,11 +55,20 @@ Phases (any failure raises and the script exits non-zero without a result):
      the restored state (identical poses); write the splat export, the
      runtime manifest and the diagnostics and read them back; render the
      pool's top 16,384 primitives at 960 x 720 with K = 64 under a top-down
-     camera through K8 (finite, drawn pixels, positive depth where covered,
-     one K8 launch); push them through the 15 BEV projections.
+     camera through K8's two stages, the binning (stage 1) and the
+     compositing (stage 2) (finite, drawn pixels, positive depth where
+     covered, one launch of each stage, peak memory below one (T, N) f32
+     tensor, a rerun bit for bit; stage 1 equal to ``tile_params`` and
+     stage 2 held to ``composite_plain`` on the map; ``render_ms`` split
+     by stage); push them through the 15 BEV projections.
 Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched in
-f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64) and K9 (N = 1536, V = 5376,
-k = 8, also batched at B = 8) against their plain versions.
+f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64: stage 1 bit
+for bit against ``tile_params`` on the seeded scene, at its edges and at
+1000 x 700, stage 2 against ``composite_plain``, with the pairs each
+stage's data needs and the bounds, dense and from those pairs, at the f32
+and the non-FMA rates; device times only from profiles that recorded
+each stage's kernels once a call) and K9 (N = 1536, V = 5376, k = 8, also batched at B = 8)
+against their plain versions.
 Then it prints the ``kernels`` JSON line (launches of the one-instance
 kernels from the ``GCConfig.tpu()`` replay of phase 4, of the batched ones
 from phase 6, of K9 from phase 7 and of K8 from phase 8) and, last, the
@@ -118,19 +127,33 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _device_ms(fn, reps: int = 20) -> float:
+def _device_ms(fn, reps: int = 20, expect=None, tries: int = 3) -> float:
     """Device time per call of everything ``fn`` launches (torch.profiler),
-    free of the host time between launches that CUDA events also see."""
+    free of the host time between launches that CUDA events also see. The
+    profile must hold device time and, for each kernel symbol of
+    ``expect``, exactly ``expect[symbol]`` launches a call: the profiler
+    can record no device time for a call that launches only a port kernel,
+    so a profile that misses either is taken again, up to ``tries`` times,
+    and then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) \
-        / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+        seen = {k: sum(e.count for e in events if f"::{k}(" in e.key)
+                for k in expect or {}}
+        if ms > 0 and all(seen[k] == n * reps
+                          for k, n in (expect or {}).items()):
+            return ms
+    raise AssertionError(f"the profiler recorded {ms} device ms per call "
+                         f"and launches {seen} for {reps} calls, expected "
+                         f"{expect} per call")
 
 
 def _bound_ms(n_bytes: float, n_ops: float,
@@ -784,25 +807,172 @@ def _select_work(N: int, V: int, k: int, B: int = 1):
             B * (N * V * (32 + 5) + N * P * k * 3))
 
 
-def _composite_work(T: int, K: int):
-    """(bytes, operations) of K8: the (T, K, 16) rows read once, 4 planes
-    of T x 1024 pixels written once; 26 f32 operations per pixel and splat
-    (the exponent counted as one)."""
-    return (T * K * 16 + 4 * T * 1024) * 4, T * 1024 * K * 26
+def _composite_work(T: int, K: int, pairs=None):
+    """(bytes, operations) of K8 stage 2: the (T, K, 16) rows read once, 4
+    planes of T x 1024 pixels written once; 26 f32 operations per pixel and
+    splat (the exponent counted as one): all T x 1024 x K pairs (dense), or
+    only the ``pairs`` whose logw clears the clip (the work the data
+    needs: every other pair's blend is an identity)."""
+    n = T * 1024 * K if pairs is None else pairs
+    return (T * K * 16 + 4 * T * 1024) * 4, n * 26
 
 
-def _seeded_scene(n: int, g, dev):
-    """``n`` splats spread over a 16 x 12 m patch at ground level."""
+def _bin_work(T: int, N: int, K: int, pairs=None):
+    """(bytes, operations) of K8 stage 1: the (N, 16) table read once, the
+    (T, K, 16) rows written once; 13 f32 operations per (tile, splat) score
+    (2 differences, 6 products, 3 sums, the reach comparison, the top-K
+    comparison; the scalings by 2 and -0.5, the square root and the mask
+    are once per splat) and K per row for the depth ranks. Dense: all T x N
+    pairs. From the data: the ``listed_pairs`` of
+    ``splat_cases.listed_pairs`` scored, and 3 operations (difference,
+    square, comparison) per (tile row, splat) for the row test that lists
+    them; every other pair scores -inf without a score."""
+    n_ops = T * K * K + (T * N * 13 if pairs is None else
+                         pairs["listed_pairs"] * 13 + pairs["row_tests"] * 3)
+    return (N * 16 + T * K * 16) * 4, n_ops
+
+
+def _bits(x):
     import torch
-    pos = torch.randn((n, 3), generator=g, device=dev) * torch.tensor(
-        [8.0, 6.0, 0.5], device=dev)
-    A = torch.randn((n, 3, 3), generator=g, device=dev)
-    Lam = A @ A.transpose(1, 2) * 20.0 + 30.0 * torch.eye(3, device=dev)
-    etas = torch.randn((n, 3, 3), generator=g, device=dev) * 4.0
-    col = torch.rand((n, 3), generator=g, device=dev)
-    w = torch.rand((n,), generator=g, device=dev) * 3.0
-    val = torch.rand((n,), generator=g, device=dev) > 0.05
-    return pos, Lam, etas, col, w, val
+    return x.contiguous().view(torch.int32)
+
+
+def _bin_held(case: str, table, n_ty: int, n_tx: int, k: int,
+              want=None) -> dict:
+    """K8 stage 1 on ``table`` against the plain binning (``want``, else
+    ``bin_plain`` on the card and on the CPU), every lane bit for bit, and
+    a rerun against the first run; raises on a miss."""
+    import torch
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    got = sk.bin_tiles(table, n_ty, n_tx, k)
+    again = sk.bin_tiles(table, n_ty, n_tx, k)
+    wants = ([want] if want is not None
+             else [sk.bin_plain(table, n_ty, n_tx, k),
+                   sk.bin_plain(table.cpu(), n_ty, n_tx, k).to(table.device)])
+    torch.cuda.synchronize()
+    mism = max(int((_bits(got) != _bits(w)).sum().item()) for w in wants)
+    rerun = torch.equal(_bits(got), _bits(again))
+    if mism or not rerun:
+        raise AssertionError(f"K8 stage 1 {case}: {mism} lanes differ from "
+                             f"the plain binning, rerun identical {rerun}")
+    return dict(case=case, N=table.shape[0], tiles=n_ty * n_tx, K=k,
+                lane_mismatches=mism, rerun_identical=rerun,
+                selected_rows=int((got[:, :, 5] > 0).sum().item()))
+
+
+def _composite_held(case: str, params, n_ty: int, n_tx: int) -> dict:
+    """K8 stage 2 against ``composite_plain``: 1e-6 on the colours (the
+    kernel's expf against torch's exp), 1e-5 relative on depth where the
+    pixel's contribution exceeds 1e-6; a rerun bit for bit."""
+    import torch
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    got = sk.composite(params, n_ty, n_tx)
+    again = sk.composite(params, n_ty, n_tx)
+    want = sk.composite_plain(params, n_ty, n_tx)
+    held = sk.coverage_plain(params, n_ty, n_tx) > 1e-6
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got[:3], want[:3]))
+    zerr = ((got[3][held] - want[3][held]).abs()
+            / want[3][held].abs().clamp(min=1e-30)).max().item()
+    rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not (err <= 1e-6 and zerr <= 1e-5 and held.any() and rerun
+            and all(bool(torch.isfinite(a).all()) for a in got)):
+        raise AssertionError(f"K8 stage 2 {case}: colors {err} (1e-6), "
+                             f"depth {zerr} relative (1e-5), rerun "
+                             f"identical {rerun}")
+    return dict(case=case, max_abs_err=err, depth_max_rel_err=zerr,
+                covered_share=held.float().mean().item(),
+                rerun_identical=rerun)
+
+
+def _k8_edges(dev) -> list:
+    """K8 stage 1 at its edges (``splat_cases.bin_edge_table``: exact score
+    and depth ties, tiles with fewer than K reaching splats, N < K and
+    N < 8, degenerate inverses, -0.0 and 0.0 scores, reach radii at the
+    square root's rounding edge), each against the plain binning on the
+    card and on the CPU; a seeded scene at 1000 x 700 (no multiple of the
+    tile) and one of 40,000 splats (three passes of the kernel's splat
+    list) against ``tile_params``; stage 2 on the 40,000-splat rows."""
+    import torch
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    from fl_slam_tpu_torch.render.splat import bev_camera
+    from fl_slam_tpu_torch.render.splat_cases import (BIN_EDGE_CASES,
+                                                      bin_edge_table,
+                                                      seeded_scene)
+    out = []
+    cpu = torch.Generator().manual_seed(SEED)
+    for case in BIN_EDGE_CASES:
+        table, n_ty, n_tx, k = bin_edge_table(case, cpu)
+        out.append(_bin_held(case, table.to(dev), n_ty, n_tx, k))
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for case, n, W, H in (("1000x700", 3000, 1000, 700),
+                          ("N40000", 40000, 640, 480)):
+        scene = seeded_scene(n, g, dev)
+        cam = bev_camera(scene[0].cpu().numpy(), W, H, device=dev)
+        want, n_ty, n_tx = sk.tile_params(*scene, cam)
+        table = sk.splat_table(*scene, cam)
+        out.append(_bin_held(case, table, n_ty, n_tx, want.shape[1],
+                             want=want))
+    out.append(_composite_held("N40000", want, n_ty, n_tx))
+    return out
+
+
+def _k8_rows(scene, cam, dev) -> list:
+    """K8's two stages on a full-width render of ``scene``: stage 1 held to
+    ``tile_params`` bit for bit (and at its edges), stage 2 to
+    ``composite_plain``; times, bounds (from the pairs this scene needs,
+    and dense, each at the f32 rate and the non-FMA rate) and the pairs."""
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    from fl_slam_tpu_torch.render.splat_cases import (listed_pairs,
+                                                      pair_counts)
+    params, n_ty, n_tx = sk.tile_params(*scene, cam)
+    table = sk.splat_table(*scene, cam)
+    T, K = params.shape[0], params.shape[1]
+    N = table.shape[0]
+    stage1 = _bin_held("seeded16384", table, n_ty, n_tx, K, want=params)
+    stage2 = _composite_held("seeded16384", params, n_ty, n_tx)
+    listed = listed_pairs(table, n_ty, n_tx, K)
+    pairs = pair_counts(params, n_ty, n_tx)
+    shape = f"960x720: {T} tiles of 8x128, N={N}, K={K}, f32"
+    nonfma = H100_F32_NONFMA_OPS_PER_S
+
+    def bounds(need, dense):
+        b, by = _bound_ms(*need)
+        d, dby = _bound_ms(*dense)
+        return dict(bound_ms=b, bound_by=by,
+                    bound_nonfma_ms=_bound_ms(*need, nonfma)[0],
+                    bound_dense_ms=d, bound_dense_by=dby,
+                    bound_dense_nonfma_ms=_bound_ms(*dense, nonfma)[0])
+    rows = [dict(
+        name="splat_bin", launch_key="splat_bin", route="cuda",
+        source="fl_slam_tpu_torch/csrc/splat_composite.cu",
+        replaces="fl_slam_tpu/render/splat_pallas.py:182",
+        also_replaces="fl_slam_tpu/render/splat_pallas.py:124-169 (the "
+                      "binning the reference left to XLA)", site="render",
+        max_abs_err=0.0, tolerance=0.0, checks=[stage1],
+        ms=_time_ms(lambda: sk.bin_tiles(table, n_ty, n_tx, K)),
+        device_ms=_device_ms(lambda: sk.bin_tiles(table, n_ty, n_tx, K),
+                             expect={"pack_kernel": 1, "bin_kernel": 1}),
+        plain_ms=_time_ms(lambda: sk.bin_plain(table, n_ty, n_tx, K),
+                          reps=5),
+        **bounds(_bin_work(T, N, K, listed), _bin_work(T, N, K)),
+        library_ms=None, pairs=listed, shape=shape, edges=_k8_edges(dev))]
+    rows.append(dict(
+        name="splat_composite", launch_key="splat_composite", route="cuda",
+        source="fl_slam_tpu_torch/csrc/splat_composite.cu",
+        replaces="fl_slam_tpu/render/splat_pallas.py:182", site="render",
+        max_abs_err=stage2["max_abs_err"], tolerance=1e-6,
+        depth_max_rel_err=stage2["depth_max_rel_err"], depth_tolerance=1e-5,
+        checks=[stage2],
+        ms=_time_ms(lambda: sk.composite(params, n_ty, n_tx)),
+        device_ms=_device_ms(lambda: sk.composite(params, n_ty, n_tx),
+                             expect={"composite_kernel": 1}),
+        plain_ms=_time_ms(lambda: sk.composite_plain(params, n_ty, n_tx),
+                          reps=5),
+        **bounds(_composite_work(T, K, pairs["contributing_pairs"]),
+                 _composite_work(T, K)),
+        library_ms=None, pairs=pairs, shape=shape))
+    return rows
 
 
 def _select_edges(g, dev) -> list:
@@ -847,55 +1017,32 @@ def _select_edges(g, dev) -> list:
 
 
 def check_render_select_kernels() -> list:
-    """Phase 3, K8 and K9 at the shapes of their paths: K8 on the 720 tiles
-    of a 960 x 720 render with K = 64 (a seeded 16,384-splat scene under a
-    top-down camera), K9 at N = 1536, V = 5376, k = 8 (f32 and f64, seeded,
-    with duplicated view columns and measurement rows: exact ties) and
+    """Phase 3, K8 and K9 at the shapes of their paths: K8's two stages on
+    the 720 tiles of a 960 x 720 render with K = 64 (a seeded 16,384-splat
+    scene under a top-down camera; stage 1 also at its edges), K9 at
+    N = 1536, V = 5376, k = 8 (f32 and f64, seeded, with duplicated view
+    columns and measurement rows: exact ties) and
     batched at B = N_INST. The kernels round as their plain versions do
-    (-fmad=false), so K9 is held exactly and K8 to 1e-6 on the colors (the
-    kernel's expf against torch's exp) and 1e-5 relative on covered depth."""
+    (-fmad=false), so K9 and K8's stage 1 are held exactly and K8's stage 2
+    to 1e-6 on the colors (the kernel's expf against torch's exp) and 1e-5
+    relative on covered depth."""
     import torch
     from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.ops import assoc_kernels as ak
     from fl_slam_tpu_torch.render import splat_kernels as sk
     from fl_slam_tpu_torch.render.splat import bev_camera
+    from fl_slam_tpu_torch.render.splat_cases import seeded_scene
 
     cfg = GCConfig.tpu()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = []
 
-    # K8: the tile parameters of a full-width render.
-    scene = _seeded_scene(16384, g, dev)
+    # K8: the tile pipeline of a full-width render, both stages.
+    scene = seeded_scene(16384, g, dev)
     cam = bev_camera(scene[0].cpu().numpy(), 960, 720)
-    params, n_ty, n_tx = sk.tile_params(*scene, cam)
-    T, K = params.shape[0], params.shape[1]
-    got = sk.composite(params, n_ty, n_tx)
-    want = sk.composite_plain(params, n_ty, n_tx)
-    cover = sk.coverage_plain(params, n_ty, n_tx)
-    torch.cuda.synchronize()
-    err = max((a - b).abs().max().item() for a, b in zip(got[:3], want[:3]))
-    held = cover > 1e-6
-    zerr = ((got[3][held] - want[3][held]).abs()
-            / want[3][held].abs().clamp(min=1e-30)).max().item()
-    if not (err <= 1e-6 and zerr <= 1e-5 and held.any()
-            and all(bool(torch.isfinite(a).all()) for a in got)):
-        raise AssertionError(f"K8 composite mismatch: colors {err} (1e-6), "
-                             f"depth {zerr} relative (1e-5)")
-    bound, by = _bound_ms(*_composite_work(T, K))
-    rows.append(dict(
-        name="splat_composite", launch_key="splat_composite", route="cuda",
-        source="fl_slam_tpu_torch/csrc/splat_composite.cu",
-        replaces="fl_slam_tpu/render/splat_pallas.py:182", site="render",
-        max_abs_err=err, tolerance=1e-6, depth_max_rel_err=zerr,
-        depth_tolerance=1e-5,
-        ms=_time_ms(lambda: sk.composite(params, n_ty, n_tx)),
-        device_ms=_device_ms(lambda: sk.composite(params, n_ty, n_tx)),
-        plain_ms=_time_ms(lambda: sk.composite_plain(params, n_ty, n_tx),
-                          reps=5),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"960x720: {T} tiles of 8x128, K={K}, f32"))
-    del scene, params, got, want, cover
+    rows.extend(_k8_rows(scene, cam, dev))
+    del scene
 
     # K9 at GCConfig.tpu()'s selection shape.
     N, V, k = cfg.n_meas, cfg.n_active_tiles * cfg.m_tile_view, cfg.k_assoc
@@ -1226,14 +1373,16 @@ def _print_belief_times(rows) -> None:
               f"(one-block design {eight})", flush=True)
 
 
-# The designs of K6 (one block per page row) and K9 (one warp per row, both
-# stages in one kernel) before their redesign: ms per call (CUDA events),
-# device us per call (torch.profiler; K6's then included an int32 cast of
-# the offsets), one instance and B = 8, from this script's phase 3 (NVIDIA
-# H100 80GB HBM3, 700.00 W).
+# The designs of K6 (one block per page row), K9 (one warp per row, both
+# stages in one kernel) and K8 (one block per tile, every pixel through
+# every splat, the binning in torch) before their redesign: ms per call
+# (CUDA events), device us per call (torch.profiler; K6's then included an
+# int32 cast of the offsets), one instance and B = 8, from this script's
+# phase 3 (NVIDIA H100 80GB HBM3, 700.00 W).
 PREVIOUS_DESIGN = {"page_gather_ff": (0.456, 3.6), "page_writeback_ff":
                    (0.360, 3.5), "select_candidates": (0.099, 71.0),
-                   "select_candidates[batched]": (0.389, 356.0)}
+                   "select_candidates[batched]": (0.389, 356.0),
+                   "splat_composite": (0.079, 74.8)}
 
 
 def _print_redesign_times(rows) -> None:
@@ -1248,6 +1397,21 @@ def _print_redesign_times(rows) -> None:
               f"per call {r['device_ms'] * 1e3:.2f} (previous design {us}), "
               f"library ms {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}){extra}", flush=True)
+    for name in ("splat_bin", "splat_composite"):
+        r = by[name]
+        p = r["pairs"]
+        share = (f"listed pairs {p['listed_share']:.4f} of {p['dense_pairs']}"
+                 if name == "splat_bin" else
+                 f"contributing pairs {p['contributing_share']:.4f} of "
+                 f"{p['dense_pairs']}, reaching {p['warp_footprint']} warp "
+                 f"footprints {p['reaching_warp_share']:.4f}")
+        print(f"{name}: {r['ms']:.3f} ms, device us per call "
+              f"{r['device_ms'] * 1e3:.2f}, plain {r['plain_ms']:.3f} ms; "
+              f"{share}; bound from the pairs {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}) / non-FMA "
+              f"{r['bound_nonfma_ms'] * 1e3:.2f} us, dense "
+              f"{r['bound_dense_ms'] * 1e3:.2f} us / non-FMA "
+              f"{r['bound_dense_nonfma_ms'] * 1e3:.2f} us", flush=True)
 
 
 def _counters():
@@ -1280,6 +1444,7 @@ _COUNT_KEYS = {
     "conditional_slab_exchange[batched]": (3, "exchange_batched"),
     "select_candidates": (0, "select_candidates"),
     "select_candidates[batched]": (0, "select_candidates_batched"),
+    "splat_bin": (4, "splat_bin"),
     "splat_composite": (4, "splat_composite"),
 }
 
@@ -1287,7 +1452,7 @@ _SINGLE_PATH = ("predict_evidence", "scalar_tail", "sinkhorn_piT",
                 "moment_segment_sum[surfels]", "moment_segment_sum[fuse]",
                 "conditional_slab_exchange_ff")
 _SELECT_PATH = ("select_candidates", "select_candidates[batched]")
-_RENDER_PATH = ("splat_composite",)
+_RENDER_PATH = ("splat_bin", "splat_composite")
 
 
 def _reset_counts():
@@ -1566,8 +1731,12 @@ def render_path() -> dict:
     and from the restored state (identical poses); write and read back the
     splat export, the runtime manifest and the diagnostics; take the top
     16,384 primitives of the pool and render them at 960 x 720 with K = 64
-    (the map viewer's widths) under a top-down camera through K8, once,
-    counted; push them through the 15 BEV projections."""
+    (the map viewer's widths) under a top-down camera through K8's two
+    stages, once, counted (one launch of each), with its peak memory (below
+    one (T, N) f32 tensor) and a rerun bit for bit; hold each stage to its
+    plain version on the map, and time the render's pieces apart (wall ms
+    until the card is done: the table, stage 1, stage 2); push them
+    through the 15 BEV projections."""
     import os
     import tempfile
 
@@ -1633,34 +1802,70 @@ def render_path() -> dict:
         result.update(export_prims=int(back["positions"].shape[0]),
                       export_ok=bool(export_ok))
 
-        # The render: top 16,384 of the pool through K8 at 960 x 720.
+        # The render: top 16,384 of the pool through K8's two stages at
+        # 960 x 720: counted, its peak memory, a rerun, each stage held to
+        # its plain version on the map, and the render's split by stage.
         prims = splat.atlas_primitives(state.atlas, cfg, 16384)
         cam = splat.bev_camera(prims[0][prims[5]].cpu().numpy(), 960, 720)
         splat_kernels.render_tiled(*prims, cam)              # warm-up
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
         img, depth = splat_kernels.render_tiled(*prims, cam)
         torch.cuda.synchronize()
         result["render_ms"] = (time.perf_counter() - t0) * 1e3
         counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        img2, depth2 = splat_kernels.render_tiled(*prims, cam)
         params, n_ty, n_tx = splat_kernels.tile_params(*prims, cam)
+        T, K = params.shape[0], params.shape[1]
+        table = splat_kernels.splat_table(*prims, cam)
+        stage1 = _bin_held("phase8_map", table, n_ty, n_tx, K, want=params)
+        stage2 = _composite_held("phase8_map", params, n_ty, n_tx)
+
+        def wall_ms(fn, reps=5):
+            ms = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(ms))
+        pieces = {
+            "splat_table": wall_ms(
+                lambda: splat_kernels.splat_table(*prims, cam)),
+            "bin_tiles": wall_ms(
+                lambda: splat_kernels.bin_tiles(table, n_ty, n_tx, K)),
+            "composite": wall_ms(
+                lambda: splat_kernels.composite(params, n_ty, n_tx))}
         cover = splat_kernels.coverage_plain(params, n_ty, n_tx)
         cover = cover.reshape(n_ty, n_tx, 8, 128).permute(0, 2, 1, 3)
         cover = cover.reshape(n_ty * 8, n_tx * 128)[:720, :960]
         drawn = (img < 0.99).any(-1)
+        # No (T, N) tensor: the render's peak stays below one (T, N) f32.
+        n_prims = prims[0].shape[0]
         render_ok = (img.shape == (720, 960, 3)
                      and bool(torch.isfinite(img).all())
                      and bool(torch.isfinite(depth).all())
                      and bool(drawn.any())
                      and bool((depth[cover > 1e-6] > 0).all())
-                     and counts["splat_composite"] == 1)
+                     and counts["splat_bin"] == 1
+                     and counts["splat_composite"] == 1
+                     and peak < T * n_prims * 4
+                     and torch.equal(img, img2) and torch.equal(depth, depth2))
         result.update(render_prims=int(prims[5].sum().item()),
-                      tiles=n_ty * n_tx, splats_per_tile=params.shape[1],
+                      tiles=T, splats_per_tile=K,
                       drawn_pixel_share=drawn.float().mean().item(),
                       covered_pixel_share=(cover > 1e-6).float().mean()
                       .item(),
-                      k8_launches=counts["splat_composite"],
+                      render_peak_mb=peak / 2 ** 20,
+                      render_pieces_ms=pieces, k8_stage1=stage1,
+                      k8_stage2=stage2,
+                      k8_launches=[counts["splat_bin"],
+                                   counts["splat_composite"]],
                       render_ok=render_ok)
 
         # BEV15 through atlas_bev.

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # their terms, and fused multiply-adds there moved the f32 result 1e-3
 # relative away from the plain version (H100, captured operands). K8 and
 # K9 build the same way, so that they round as their plain versions'
-# separate elementwise products and sums do.
+# separate elementwise products and sums do (K8's binning scores and reach
+# tests, every one, bit for bit).
 EXTRA_FLAGS = {"predict_evidence": ("-fmad=false",),
                "scalar_tail": ("-fmad=false",),
                "splat_composite": ("-fmad=false",),
@@ -60,7 +61,8 @@ ENTRY_POINTS = {
                          "predict_evidence_f64": "p" * 12 + "i"},
     "scalar_tail": {"scalar_tail_f32": "p" * 20 + "i",
                     "scalar_tail_f64": "p" * 20 + "i"},
-    "splat_composite": {"splat_composite_f32": "ppiii"},
+    "splat_composite": {"splat_bin_f32": "pppiiiiii",
+                        "splat_composite_f32": "ppiiiii"},
     "select": {"select_f32": "pppppp" + "i" * 9,
                "select_f64": "pppppp" + "i" * 9},
 }

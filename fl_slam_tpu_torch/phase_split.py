@@ -106,9 +106,13 @@ ONE_BLOCK = {
 }
 
 _STAMP = r'''
+#ifndef STAMP_BLOCK
+#define STAMP_BLOCK 0
+#endif
 __device__ unsigned long long g_stamp[2][64 * 8];
 __device__ __forceinline__ void stamp_(int i) {
-  if (threadIdx.x % 32 == 0 && threadIdx.x < 256 && blockIdx.x == 0) {
+  if (threadIdx.x % 32 == 0 && threadIdx.x < 256
+      && blockIdx.x == STAMP_BLOCK) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     g_stamp[0][i * 8 + threadIdx.x / 32] = t;
@@ -142,13 +146,14 @@ def stamp_lines(source: str, anchors) -> list:
     return out
 
 
-def stamped_source(source: str, lines) -> str:
+def stamped_source(source: str, lines,
+                   include: str = '#include "belief_common.cuh"') -> str:
+    """``source`` with ``stamp_(i)`` before line ``lines[i]`` and the stamp
+    code after ``include`` (block STAMP_BLOCK, default 0, records)."""
     text = source.split("\n")
     for i, ln in sorted(enumerate(lines), key=lambda p: -p[1]):
         text.insert(ln - 1, f"stamp_({i});")
-    return "\n".join(text).replace(
-        '#include "belief_common.cuh"',
-        '#include "belief_common.cuh"\n' + _STAMP, 1)
+    return "\n".join(text).replace(include, include + "\n" + _STAMP, 1)
 
 
 def _nvcc(src: Path, name: str, cu: Path, so: Path, extra=()) -> str:
@@ -285,10 +290,7 @@ def main() -> int:
         r = {"ptxas": [l.strip() for l in log.splitlines()
                        if "Used" in l or "stack frame" in l],
              "sass_instructions": _sass_counts(so)}
-        lib0 = ctypes.CDLL(str(so))
-        lib0.fl_error_string.argtypes = [ctypes.c_int]
-        lib0.fl_error_string.restype = ctypes.c_char_p
-        cuda_build._LIBS[name] = lib0
+        cuda_build._LIBS[name] = cuda_build.bind(ctypes.CDLL(str(so)), name)
         fn = fns[name]
         for dt in (torch.float32, torch.float64):
             x = [t.to(dev, dt) for t in ops[k]]
@@ -305,9 +307,8 @@ def main() -> int:
         cu = work / f"{name}_stamped.cu"
         cu.write_text(stamped_source(source, lines[name]))
         _nvcc(args.src, name, cu, work / f"{name}_stamped.so")
-        lib = ctypes.CDLL(str(work / f"{name}_stamped.so"))
-        lib.fl_error_string.argtypes = [ctypes.c_int]
-        lib.fl_error_string.restype = ctypes.c_char_p
+        lib = cuda_build.bind(ctypes.CDLL(str(work / f"{name}_stamped.so")),
+                              name)
         libs[name] = lib
         cuda_build._LIBS[name] = lib
         labels = [label for _, label in anchors[name]]

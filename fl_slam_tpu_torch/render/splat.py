@@ -140,20 +140,34 @@ def shaded_splats(positions, Lambdas, etas, colors, weights, valid,
     return uv, S2, S2inv, depth, alpha0, rgb, ok
 
 
-def tile_scores(centers, uv, S2, S2inv, ok, tile_px: float):
-    """(T, N) binning score: -0.5 Mahalanobis distance of each tile center
-    to each splat, -inf where the splat is masked or cannot reach the
-    tile."""
-    d = centers[:, None, :] - uv[None, :, :]                 # (T, N, 2)
-    maha = (S2inv[None, :, 0, 0] * d[..., 0] ** 2
-            + 2.0 * S2inv[None, :, 0, 1] * d[..., 0] * d[..., 1]
-            + S2inv[None, :, 1, 1] * d[..., 1] ** 2)
-    # Effective footprint must reach the tile: inflate by tile radius.
+def reach_radius(S2, tile_px: float):
+    """Per splat, the distance from a tile center within which the splat
+    can reach the tile: 3 sigma of its larger axis variance plus the tile
+    radius ``tile_px``."""
     sig_px = torch.sqrt(torch.clamp(torch.maximum(S2[:, 0, 0], S2[:, 1, 1]),
                                     min=1e-6))
-    reach = torch.linalg.norm(d, dim=-1) < (3.0 * sig_px + tile_px)[None, :]
-    return torch.where(ok[None, :] & reach, -0.5 * maha,
-                       torch.full_like(maha, float("-inf")))
+    return 3.0 * sig_px + tile_px
+
+
+def tile_scores(centers, uv, s00, s01, s11, reach_px, ok):
+    """(T, N) binning score: -0.5 Mahalanobis distance of each tile center
+    to each splat (inverse covariance terms ``s00``, ``s01``, ``s11``),
+    -inf where the splat is masked or farther than ``reach_px``. Written in
+    elementwise ops in a fixed order (squares as products, the distance as
+    the square root of their sum), so that the binning kernel
+    (``csrc/splat_composite.cu``) rounds every score and reach test as this
+    does. The square root is taken in f64 and rounded back, which is the
+    correctly rounded f32 square root on every device (torch's f32 CPU
+    square root is not: it misses by one ulp in ~0.6% of random inputs)."""
+    d0 = centers[:, None, 0] - uv[None, :, 0]                # (T, N)
+    d1 = centers[:, None, 1] - uv[None, :, 1]
+    d00 = d0 * d0
+    d11 = d1 * d1
+    maha = s00[None, :] * d00 + 2.0 * s01[None, :] * d0 * d1 \
+        + s11[None, :] * d11
+    dist = torch.sqrt((d00 + d11).double()).to(d00.dtype)
+    reach = dist < reach_px[None, :]
+    return torch.where(ok[None, :] & reach, -0.5 * maha, float("-inf"))
 
 
 def render(positions, Lambdas, etas, colors, weights, valid, cam: Camera,
@@ -177,7 +191,8 @@ def render(positions, Lambdas, etas, colors, weights, valid, cam: Camera,
     cx = (torch.arange(n_tx, device=dev) * TILE + TILE / 2.0).to(dt)
     centers = torch.stack(torch.meshgrid(cx, cy, indexing="xy"),
                           -1).reshape(-1, 2)                 # (T, 2)
-    score = tile_scores(centers, uv, S2, S2inv, ok, float(TILE))
+    score = tile_scores(centers, uv, S2inv[:, 0, 0], S2inv[:, 0, 1],
+                        S2inv[:, 1, 1], reach_radius(S2, float(TILE)), ok)
     k = min(MAX_SPLATS_PER_TILE, N)
     _, tile_idx = top_k(score, k)                            # (T, k)
 

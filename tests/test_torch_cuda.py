@@ -19,6 +19,8 @@ from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.ops import assoc_kernels, belief_kernels, surfel_kernels
 from fl_slam_tpu_torch.ops import noise as noise_ops
+from fl_slam_tpu_torch.render.splat_cases import (BIN_EDGE_CASES,
+                                                  bin_edge_table)
 from fl_slam_tpu_torch.structures import atlas_kernels
 
 UA = VB = 0.5 / 0.6
@@ -679,9 +681,80 @@ def test_composite_kernel_matches_plain(cuda, W, H, n):
     assert covered.any()
     assert torch.allclose(got[3][covered], want[3][covered], rtol=1e-5,
                           atol=0)
+    again = sk.composite(params, n_ty, n_tx)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    bins = sk.launches["splat_bin"]
     img, depth = sk.render_tiled(*scene, cam)
-    assert sk.launches["splat_composite"] == before + 2
+    assert sk.launches["splat_composite"] == before + 3
+    assert sk.launches["splat_bin"] == bins + 1
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
+    img2, depth2 = sk.render_tiled(*scene, cam)
+    assert torch.equal(img, img2) and torch.equal(depth, depth2)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+# Stage 1 is held to the plain binning bit for bit (indices and all 16
+# lanes), on the card and against the CPU's plain version.
+@pytest.mark.parametrize("case", BIN_EDGE_CASES)
+def test_bin_kernel_edges_match_plain(cuda, case):
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    table, n_ty, n_tx, k = bin_edge_table(case,
+                                          torch.Generator().manual_seed(7))
+    want = sk.bin_plain(table, n_ty, n_tx, k)
+    before = sk.launches["splat_bin"]
+    got = sk.bin_tiles(table.to(cuda), n_ty, n_tx, k)
+    assert sk.launches["splat_bin"] == before + 1
+    assert got.shape == (n_ty * n_tx, k, 16)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    on_card = sk.bin_plain(table.to(cuda), n_ty, n_tx, k)
+    assert torch.equal(_bits(got), _bits(on_card))
+    again = sk.bin_tiles(table.to(cuda), n_ty, n_tx, k)
+    assert torch.equal(_bits(got), _bits(again))
+
+
+# 40,000 splats: three passes of the kernel's splat list.
+@pytest.mark.parametrize("W,H,n", [(960, 720, 16384), (1000, 700, 3000),
+                                   (640, 480, 40000)])
+def test_bin_kernel_matches_tile_params(cuda, W, H, n):
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    scene = [t.to(cuda) for t in _scene(n, W + 1)]
+    cam = _top_down(W, H)
+    cam = cam._replace(pose_wc=cam.pose_wc.to(cuda))
+    want, n_ty, n_tx = sk.tile_params(*scene, cam)
+    table = sk.splat_table(*scene, cam)
+    got = sk.bin_tiles(table, n_ty, n_tx, want.shape[1])
+    assert torch.equal(_bits(got), _bits(want))
+    assert (got[:, :, 5] > 0).any()
+
+
+# Each entry point launches from its plan and refuses one that leaves a
+# tile uncovered or the kernel short of shared memory.
+@pytest.mark.parametrize("short", ["bin_grid", "bin_smem", "composite_grid",
+                                   "composite_smem"])
+def test_splat_kernels_refuse_a_short_plan(cuda, monkeypatch, short):
+    from fl_slam_tpu_torch.render import splat_kernels as sk
+    table, n_ty, n_tx, k = bin_edge_table("ties",
+                                          torch.Generator().manual_seed(1))
+    table = table.to(cuda)
+    stage, what = short.split("_")
+    real = sk.bin_plan if stage == "bin" else sk.composite_plan
+
+    def bad(*a):
+        p = dict(real(*a))
+        key = {"grid": "grid", "smem": "smem_bytes"}[what]
+        p[key] -= 8 if what == "smem" else 1
+        return p
+    monkeypatch.setattr(sk, f"{stage}_plan", bad)
+    params = (sk.bin_plain(table, n_ty, n_tx, k) if stage == "composite"
+              else None)
+    with pytest.raises(RuntimeError, match=f"splat_{stage}: CUDA error"):
+        if stage == "bin":
+            sk.bin_tiles(table, n_ty, n_tx, k)
+        else:
+            sk.composite(params, n_ty, n_tx)
 
 
 # The redesigned K4 (sort each span, segmented reduction, gather per cell)
