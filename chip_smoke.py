@@ -61,6 +61,18 @@ Phases (any failure raises and the script exits non-zero without a result):
      tensor, a rerun bit for bit; stage 1 equal to ``tile_params`` and
      stage 2 held to ``composite_plain`` on the map; ``render_ms`` split
      by stage); push them through the 15 BEV projections.
+  9. the bag path: write a 300-scan Kimera-layout fixture bag at real VLP-16
+     density (``n_az`` 1,800: 28,800 raw points a scan) and run the
+     evaluation entry point on it, ``eval.run_eval --profile kimera
+     --seg-len 100 --stream --gt`` (a staging thread one segment ahead of
+     the replay): every audit gate, the native staging backend, 0 host
+     syncs inside each segment's replay (the count over the whole streamed
+     loop printed), each of K1-K5's launches per scan, ATE and RPE@1m
+     inside the fixture's full-metrics bands (0.6 m / 18 deg, 0.35 m / 2.5
+     deg), and the streamed poses bit for bit those of one ``replay`` over
+     the same staged scans; the staging-included and the replay-only
+     scans/s. The fixture's odometry is its ground truth (raw odometry's
+     ATE is 0 by construction), so SLAM is not held to beat it here.
 Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched in
 f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64: stage 1 bit
 for bit against ``tile_params`` on the seeded scene, at its edges and at
@@ -86,6 +98,10 @@ import time
 import warnings
 
 N_SCANS = 100
+N_BAG, BAG_SEG, BAG_N_AZ = 300, 100, 1800   # phase 9's fixture and segments
+# test_fixture_full_metrics_gate's bands (tests/test_kimera_layout_parity.py)
+BAG_BANDS = {"ate_trans_m": 0.6, "ate_rot_deg": 18.0,
+             "rpe1_trans_m": 0.35, "rpe1_rot_deg": 2.5}
 N_RERUN = 20
 SEED = 3
 N_INST = 8                       # instances per card (the reference's B)
@@ -1891,6 +1907,142 @@ def render_path() -> dict:
     return counts
 
 
+def bag_path() -> dict:
+    """Phase 9: the evaluation entry point on a Kimera-layout fixture bag
+    (staging included), against a monolithic replay of the same staged
+    scans. Returns the launch counts of the streamed run."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch import pipeline
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.eval import run_eval
+    from fl_slam_tpu_torch.io.kimera import (KIMERA_TOPICS,
+                                             make_kimera_fixture_bag)
+    from fl_slam_tpu_torch.io.rosbag import (StreamingStager,
+                                             load_scan_records,
+                                             smoothed_initial_anchor)
+
+    cfg = GCConfig.tpu()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bag_")
+    replay, replay_segments = pipeline.replay, pipeline.replay_segments
+    seg_syncs, loop_syncs = [], []
+
+    def counted(fn, into):
+        def run(*args, **kwargs):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn(*args, **kwargs)
+            into.append(sum(_SYNC_WARNING in str(w.message)
+                            for w in caught))
+            return out
+        return run
+
+    def streamed_loop(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return counted(replay_segments, loop_syncs)(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    try:
+        t0 = time.perf_counter()
+        bag_dir, gt = make_kimera_fixture_bag(
+            os.path.join(tmp, "bag"), n_scans=N_BAG, seed=0, n_az=BAG_N_AZ)
+        bag_s = time.perf_counter() - t0
+        # Count the host syncs inside each segment's replay (the inner
+        # count) and over the whole streamed loop (the staging, the copies
+        # and the segment replays).
+        pipeline.replay = counted(replay, seg_syncs)
+        pipeline.replay_segments = streamed_loop
+        torch.cuda.synchronize()
+        _reset_counts()
+        try:
+            res = run_eval.main([
+                "--out", os.path.join(tmp, "eval"), "--bag", bag_dir,
+                "--profile", "kimera", "--gt", gt, "--scans", str(N_BAG),
+                "--seg-len", str(BAG_SEG), "--stream"])
+        except SystemExit as e:
+            raise AssertionError(f"bag path: run_eval exited {e.code}")
+        finally:
+            pipeline.replay, pipeline.replay_segments = (replay,
+                                                         replay_segments)
+        counts = _read_counts()
+        m = res["metrics"]
+        stager = res["stager"]
+
+        # One replay over the same staged scans: the same staging path in
+        # one segment, from the same anchor.
+        head = load_scan_records(bag_dir, KIMERA_TOPICS, cfg, max_scans=10)
+        (whole,) = list(StreamingStager(bag_dir, KIMERA_TOPICS, cfg, N_BAG,
+                                        max_scans=N_BAG))
+        state = pipeline.init_state(
+            cfg, anchor0=smoothed_initial_anchor(head, cfg),
+            t0=float(head["scan_start"][0]) - 0.1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = replay(state, whole, cfg)
+        mono = out.pose.cpu().numpy()
+        replay_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    R = cfg.view_refresh_every
+    want = {"predict_evidence": N_BAG, "scalar_tail": N_BAG,
+            "sinkhorn_piT": N_BAG, "moment_segment_sum[surfels]": N_BAG,
+            "moment_segment_sum[fuse]": N_BAG,
+            "conditional_slab_exchange_ff": N_BAG // R}
+    result = dict(
+        scans=m["scans"], segments=len(seg_syncs), seg_len=BAG_SEG,
+        raw_points_per_scan=16 * BAG_N_AZ, bag_build_s=bag_s,
+        staging_backend=stager.audit["staging_backend"],
+        staging_included_scans_per_s=m["scans_per_sec"],
+        replay_only_scans_per_s=N_BAG / replay_s,
+        stage_s_per_segment=stager.stage_s,
+        wait_s_per_segment=stager.wait_s,
+        host_syncs_per_segment_replay=seg_syncs,
+        host_syncs_streamed_loop=loop_syncs[0] + sum(seg_syncs),
+        gates=res["gates"],
+        ate_trans_m=m["ate"]["trans"]["rmse"],
+        ate_rot_deg=m["ate"]["rot_deg"]["rmse"],
+        rpe1_trans_m=m["rpe_1m"]["trans"]["rmse"],
+        rpe1_rot_deg=m["rpe_1m"]["rot_deg"]["rmse"],
+        odom_ate_trans_m=m["ate_raw_odom"]["trans"]["rmse"],
+        odom_ate_rot_deg=m["ate_raw_odom"]["rot_deg"]["rmse"],
+        launches={k: v for k, v in counts.items() if v},
+        streamed_equals_monolithic=bool(np.array_equal(res["poses"], mono)))
+    print("bag: " + json.dumps(result), flush=True)
+    print(f"bag: staging included {result['staging_included_scans_per_s']:.2f}"
+          f" scans/s, replay only {result['replay_only_scans_per_s']:.2f} "
+          f"scans/s; host syncs over the streamed loop "
+          f"{result['host_syncs_streamed_loop']}", flush=True)
+    if not all(res["gates"].values()):
+        raise AssertionError(f"bag path: gates {res['gates']}")
+    if result["staging_backend"] != "native":
+        raise AssertionError("bag path: staging did not run natively")
+    if result["scans"] != N_BAG or len(seg_syncs) != N_BAG // BAG_SEG:
+        raise AssertionError(f"bag path: {result['scans']} scans in "
+                             f"{len(seg_syncs)} segments")
+    if any(seg_syncs):
+        raise AssertionError(f"bag path: host syncs inside the segment "
+                             f"replays: {seg_syncs}")
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"bag path: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    for key, limit in BAG_BANDS.items():
+        if not result[key] < limit:
+            raise AssertionError(f"bag path: {key} {result[key]} is not "
+                                 f"below {limit}")
+    if not result["streamed_equals_monolithic"]:
+        raise AssertionError("bag path: the streamed poses differ from one "
+                             "replay of the same staged scans")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1919,6 +2071,7 @@ def main() -> int:
     scounts = select_path(main_run, ds, scans)
     del ds, scans
     rcounts = render_path()
+    bag_path()
     for row in rows:
         key = row.pop("launch_key")
         # One-instance kernels count in the GCConfig.tpu() replay of phase

@@ -151,3 +151,20 @@ def rpe(est_poses, gt_poses, delta_m: float = 1.0):
         "rot_deg": {"rmse": float(np.sqrt(np.mean(e_r ** 2)))},
         "n": int(len(pairs)),
     }
+
+
+def save_tum(path, stamps, poses):
+    """TUM format: stamp tx ty tz qx qy qz qw."""
+    poses = np.asarray(poses, dtype=np.float64)
+    R = _rotvec_to_R(poses[:, 3:6])
+    # rotation matrix -> quaternion (w last)
+    t = np.trace(R, axis1=-2, axis2=-1)
+    qw = np.sqrt(np.maximum(1.0 + t, 1e-12)) * 0.5
+    qx = (R[:, 2, 1] - R[:, 1, 2]) / (4.0 * qw)
+    qy = (R[:, 0, 2] - R[:, 2, 0]) / (4.0 * qw)
+    qz = (R[:, 1, 0] - R[:, 0, 1]) / (4.0 * qw)
+    with open(path, "w") as fh:
+        for i in range(len(stamps)):
+            fh.write(f"{float(stamps[i]):.6f} "
+                     f"{poses[i,0]:.6f} {poses[i,1]:.6f} {poses[i,2]:.6f} "
+                     f"{qx[i]:.6f} {qy[i]:.6f} {qz[i]:.6f} {qw[i]:.6f}\n")

@@ -24,6 +24,10 @@ import numpy as np
 from fl_slam_tpu_torch.config import GCConfig, GRAVITY_MAG
 
 
+# Field alignment of the packed upload, in elements (256 bytes in f32).
+_ALIGN = 64
+
+
 class SyntheticDataset(NamedTuple):
     scans: dict          # stacked ScanInput fields (numpy, leading axis T)
     gt_poses: np.ndarray  # (T, 6) world [t, rotvec] at scan clock times
@@ -373,11 +377,22 @@ def simulate(cfg: GCConfig, n_scans: int = 60, scan_hz: float = 10.0,
 
 def to_scan_inputs(ds: SyntheticDataset, cfg: GCConfig, device=None):
     """Stacked numpy dict -> ScanInput of torch tensors in ``cfg``'s dtype
-    on ``device`` (default: the CUDA device; raises without one)."""
+    on ``device`` (default: the CUDA device; raises without one), in one
+    packed host-to-device copy cut into the fields there. Each field starts
+    at a multiple of ``_ALIGN`` elements of the packed buffer."""
     import torch
     from fl_slam_tpu_torch.pipeline import ScanInput
     from fl_slam_tpu_torch.runtime import resolve_device
     dev = resolve_device(device)
-    return ScanInput(**{k: torch.as_tensor(np.asarray(v), dtype=cfg.torch_dtype,
-                                           device=dev)
-                        for k, v in ds.scans.items()})
+    arrs = {k: np.asarray(v) for k, v in ds.scans.items()}
+    offs, o = [], 0
+    for a in arrs.values():
+        offs.append(o)
+        o += -(-a.size // _ALIGN) * _ALIGN
+    flat = torch.empty(o, dtype=cfg.torch_dtype)
+    host = flat.numpy()
+    for off, a in zip(offs, arrs.values()):
+        host[off:off + a.size] = a.ravel()
+    flat = flat.to(dev)
+    return ScanInput(**{k: flat[off:off + a.size].view(a.shape)
+                        for off, (k, a) in zip(offs, arrs.items())})

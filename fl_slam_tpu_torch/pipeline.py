@@ -1,7 +1,7 @@
 """The per-scan inference step and the chunked replay (port of
 ``fl_slam_tpu/pipeline.py`` on the ported path: ``init_state``,
 ``_chunk_begin``, ``_scan_core``, ``_chunk_end``, ``process_scan``,
-``flush_slabs`` and the chunked ``replay``).
+``flush_slabs``, the chunked ``replay`` and ``replay_segments``).
 
 ``_scan_core`` has the reference's two belief branches: with
 ``belief_kernel`` (``GCConfig.tpu()``) the K=1 chain runs as the kernels K1
@@ -21,6 +21,7 @@ reference donates them to the compiled replay the same way).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -744,3 +745,47 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
     certs = {k: certs_tc[:, j] for j, k in enumerate(names)}
     return flush_slabs(state, dev), ScanOutput(
         pose=torch.stack(poses), stamp=torch.stack(stamps), certs=certs)
+
+
+def replay_segments(state: PipelineState, segments, cfg: GCConfig,
+                    progress=None, device=None):
+    """Replay a bag segment by segment: ``replay`` over each fixed-shape
+    ``ScanInput`` segment of ``segments`` (an iterable, typically staged
+    lazily: ``io.rosbag.StreamingStager``), the state carried across.
+
+    When every segment boundary falls on a chunk boundary (segment length a
+    multiple of ``view_refresh_every``) the final state and the
+    concatenated outputs equal one ``replay`` over all scans: the flush at
+    each segment's end writes the resident slabs back to their pool slots,
+    which the next exchange writes again with the same rows.
+
+    ``progress(i, n_dispatched, wall_s, n_done)`` is called after segment
+    i is enqueued; ``n_done`` counts the scans whose segment the card has
+    finished, read from events without waiting (no host sync). Returns
+    (final state, ScanOutput over every scan of every segment)."""
+    dev = resolve_device(device)
+    outs_list = []
+    ends = []
+    n_disp = 0
+    t0 = time.perf_counter()
+    for i, seg in enumerate(segments):
+        state, outs = replay(state, seg, cfg, device=dev)
+        outs_list.append(outs)
+        if progress is not None:
+            n = int(outs.pose.shape[0])
+            n_disp += n
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record()
+                ends.append((ev, n))
+                done = sum(k for e, k in ends if e.query())
+            else:
+                done = n_disp
+            progress(i, n_disp, time.perf_counter() - t0, done)
+    if not outs_list:
+        raise ValueError("replay_segments: empty segment iterable")
+    return state, ScanOutput(
+        pose=torch.cat([o.pose for o in outs_list]),
+        stamp=torch.cat([o.stamp for o in outs_list]),
+        certs={k: torch.cat([o.certs[k] for o in outs_list])
+               for k in outs_list[0].certs})

@@ -2,7 +2,9 @@
 Sinkhorn, K4 moment segment-sum, K5 slab exchange, K6 page IO, K8 splat
 compositing, K9 candidate selection, K10 the row-major exchange) against
 their plain versions, in f32 and f64, on a CUDA device, and their
-instance-batched launches (K7, batched K9) against the one-instance ones.
+instance-batched launches (K7, batched K9) against the one-instance ones;
+and the bag staging's upload to the card (pinned double buffers, one copy
+a segment) against the CPU staging.
 
 Every test skips without one. The file imports no JAX, so it also runs on
 the card, where JAX is absent:
@@ -863,3 +865,61 @@ def test_moment_kernel_wide_keys(cuda):
     got = surfel_kernels.moment_segment_sum(pay.to(cuda), cell.to(cuda), C,
                                             site="surfels").cpu()
     assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_streamed_upload_matches_cpu_without_a_sync(cuda, tmp_path, dtype):
+    """Four segments of 3 scans (so each pinned buffer is refilled after
+    its copy, and the tail pads) reach the card bit for bit as the CPU
+    staging has them, and iterating the stager synchronizes nothing."""
+    from fl_slam_tpu_torch.io import kimera, rosbag
+    bag, _ = kimera.make_kimera_fixture_bag(str(tmp_path), n_scans=11,
+                                            seed=0)
+    cfg = GCConfig.small(dtype=dtype)
+
+    def segments(device):
+        return rosbag.StreamingStager(bag, kimera.KIMERA_TOPICS, cfg, 3,
+                                      device=device)
+
+    want = list(segments("cpu"))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = list(segments(cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for f in g._fields:
+            a = getattr(g, f)
+            assert a.device.type == "cuda" and a.dtype == cfg.torch_dtype
+            assert torch.equal(a.cpu(), getattr(w, f)), f
+
+
+def test_one_shot_uploads_pin_one_buffer_and_copy_once(cuda, tmp_path):
+    """A one-shot upload pins one host buffer (the second slot is never
+    allocated), and the synthetic and staged uploads reach the card as one
+    device buffer each, bit for bit as on the CPU."""
+    from fl_slam_tpu_torch.io import kimera, rosbag
+    from fl_slam_tpu_torch.io import synthetic
+    cfg = GCConfig.small()
+    bag, _ = kimera.make_kimera_fixture_bag(str(tmp_path), n_scans=4,
+                                            seed=0)
+    recs = rosbag.load_scan_records(bag, kimera.KIMERA_TOPICS, cfg)
+    up = rosbag.SegmentUploader(cfg, 4, cuda)
+    views = up.host(0)
+    for k, v in views.items():
+        v[...] = recs[k]
+    up.upload(0)
+    assert up._bufs[0] is not None and up._bufs[1] is None
+    ds = synthetic.simulate(cfg, n_scans=3, seed=0)
+    for got, want, sent in (
+            (synthetic.to_scan_inputs(ds, cfg, device=cuda),
+             synthetic.to_scan_inputs(ds, cfg, device="cpu"), None),
+            (rosbag.to_scan_inputs(recs, cfg, device=cuda),
+             rosbag.to_scan_inputs(recs, cfg, device="cpu"), "cam_")):
+        fields = [f for f in got._fields
+                  if sent is None or not f.startswith(sent)]
+        assert len({getattr(got, f).untyped_storage().data_ptr()
+                    for f in fields}) == 1
+        for f in got._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
