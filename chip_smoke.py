@@ -21,13 +21,15 @@ Phases (any failure raises and the script exits non-zero without a result):
      ``GCConfig.tpu()`` replay and an edge set (condition number 1e7, the
      first scan of the relative odometry branch, dt = 1e-4 s), reruns bit
      for bit, and their device us per call, one instance and B = 8, beside
-     the one-block design's; K6 and K9 at their edges (K6 at B = 8: the
-     last page of every slab, int32 offsets, offsets shared by every
-     instance, offsets off the 16-byte grid, f64; K9 in f32 and f64: one
-     chunk, V = 16,640, N not a multiple of the rows per warp, exact ties
-     across the warps' chunks and row groups), reruns bit for bit, and
-     their ms, device us per call, library ms and bound beside the
-     previous designs' (K9's bound also at the non-FMA instruction rate);
+     the one-block design's; K1/K2, K3 and K4's fuse site also on the
+     operands captured from one camera-on scan (its camera rows live); K6
+     and K9 at their edges (K6 at B = 8: the last page of every slab, int32
+     offsets, offsets shared by every instance, offsets off the 16-byte
+     grid, f64; K9 in f32 and f64: one chunk, V = 16,640, N not a multiple
+     of the rows per warp, exact ties across the warps' chunks and row
+     groups), reruns bit for bit, and their ms, device us per call, library
+     ms and bound beside the previous designs' (K9's bound also at the non-
+     FMA instruction rate);
   4. replay ``GCConfig.tpu()`` (the belief kernels K1/K2 on) and then
      ``GCConfig.tpu(belief_kernel=False)`` over 100 synthetic
      drifting-odometry scans each (seed 3, 10 chunks), each after a
@@ -73,6 +75,20 @@ Phases (any failure raises and the script exits non-zero without a result):
      the same staged scans; the staging-included and the replay-only
      scans/s. The fixture's odometry is its ground truth (raw odometry's
      ATE is 0 by construction), so SLAM is not held to beat it here.
+ 10. the camera path on synthetic RGB-D (320 x 240 frames; native FAST-9
+     features fused with the scan's lidar depth into the first n_feat = 512
+     of the 1,536 measurement rows): (a) the reference's production claim,
+     ``GCConfig.tpu()`` over 200 drifting-odometry scans (seed 0) camera
+     off and on, each counted and sync-checked as in phase 4: camera on
+     below 0.30 m and 3.0 deg and below 1.5 x camera off + 0.02 m; the
+     valid camera rows per scan, the host staging ms a frame, ms/scan,
+     K1-K5's launches per scan, and a 20-scan camera-on rerun bit for bit;
+     (b) the lidar-degenerate corridor (50 scans, seed 3, odometry 6%
+     long) at the reference test's budgets (``GCConfig.small()`` with one
+     hypothesis and the paged view): camera on below 0.8 x camera off; the
+     same at ``GCConfig.tpu()``, printed; (c) the batched replay camera
+     on, B = 8 x 20 scans (seeds 3-10), counted, sync-checked, instance 0
+     against the single-instance replay.
 Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched in
 f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64: stage 1 bit
 for bit against ``tile_params`` on the seeded scene, at its edges and at
@@ -104,6 +120,20 @@ BAG_BANDS = {"ate_trans_m": 0.6, "ate_rot_deg": 18.0,
              "rpe1_trans_m": 0.35, "rpe1_rot_deg": 2.5}
 N_RERUN = 20
 SEED = 3
+# Phase 10, the camera path. (a) The reference's production claim
+# (tests/test_camera.py:309-333): 200 scans, seed 0, camera on within these
+# bounds and within 1.5 x camera off + 0.02 m.
+N_CAMERA, CAMERA_SEED = 200, 0
+CAMERA_CLAIM = {"ate_trans_m": 0.30, "ate_rot_deg": 3.0}
+# (b) The lidar-degenerate corridor (tests/test_camera.py:139-162): 50
+# scans, seed 3, odometry 6% long; camera on below 0.8 x camera off. The
+# reference runs GCConfig.small(); the port runs it with one hypothesis
+# (the reference's bank of 4 is inert) and the paged view.
+N_CORRIDOR, CORRIDOR_SEED, CORRIDOR_DRIFT = 50, 3, 1.06
+CORRIDOR_CFG = dict(k_hyp=1, view_page=64, surfel_moment_kernel=True,
+                    fuse_moment_kernel=True)
+# (c) The batched replay camera on: B = N_INST instances of this many scans.
+N_CAMERA_BATCHED = 20
 N_INST = 8                       # instances per card (the reference's B)
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
@@ -299,8 +329,43 @@ def _moment_edges(g, dev) -> list:
     return out
 
 
-def check_kernels() -> list:
-    """Phase 3: every kernel of the path against its plain version."""
+def _camera_checks(cam_ops: dict, n_feat: int) -> dict:
+    """K3 and K4 (fuse site) against their plain versions on the operands
+    captured from a camera-on scan (f32, as the replay gives them), with
+    the camera rows each saw."""
+    import torch
+    from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
+    (lk, la), kw = cam_ops["sinkhorn_piT"]
+    got = assoc_kernels.sinkhorn_piT(lk, la, **kw)
+    want = assoc_kernels.sinkhorn_piT_plain(lk, la, **kw)
+    k3 = _held("K3 sinkhorn (camera-on scan)", got, want, _k3_tol(want),
+               rerun=torch.equal(got, assoc_kernels.sinkhorn_piT(lk, la,
+                                                                 **kw)),
+               inputs="captured camera-on", rows=int(la.numel()),
+               live_camera_rows=int(torch.isfinite(la[:n_feat]).sum()))
+    (pay, cell, C), kw = cam_ops["moment_segment_sum"]
+    got = surfel_kernels.moment_segment_sum(pay, cell, C, **kw)
+    want = surfel_kernels.moment_segment_sum_plain(pay, cell, C)
+    K = pay.shape[1] // (la.numel())
+    k4 = _held("K4 moment (fuse, camera-on scan)", got, want,
+               _k4_tol(want), rerun=torch.equal(
+                   got, surfel_kernels.moment_segment_sum(pay, cell, C,
+                                                          **kw)),
+               inputs="captured camera-on", columns=int(pay.shape[1]),
+               live_camera_columns=int(
+                   (pay[:, :n_feat * K] != 0).any(0).sum()))
+    print(f"camera-on operands ({cam_ops['camera_rows']} valid camera rows"
+          f" in the scan): K3 {k3['max_abs_err']:.3g} (tolerance "
+          f"{k3['tolerance']:.3g}), {k3['live_camera_rows']} live camera "
+          f"rows of {k3['rows']}; K4 fuse {k4['max_abs_err']:.3g} "
+          f"(tolerance {k4['tolerance']:.3g}), {k4['live_camera_columns']} "
+          f"camera columns with mass of {k4['columns']}", flush=True)
+    return {"sinkhorn_piT": k3, "moment_segment_sum[fuse]": k4}
+
+
+def check_kernels(cam_ops: dict) -> list:
+    """Phase 3: every kernel of the path against its plain version (K3 and
+    K4's fuse site also on the operands of a camera-on scan)."""
     import torch
     from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
@@ -311,6 +376,7 @@ def check_kernels() -> list:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
+    camera = _camera_checks(cam_ops, cfg.n_feat)
 
     # K3 Sinkhorn at the association's shape, f32 and f64 (the kernel's
     # plan and the tolerance by dtype), then its edges.
@@ -325,6 +391,7 @@ def check_kernels() -> list:
         out_p = assoc_kernels.sinkhorn_piT_plain(x, y, **kw)
         checks.append(_held("K3 sinkhorn", out_k, out_p, _k3_tol(out_p),
                             rerun=torch.equal(out_k, again)))
+    checks.append(camera["sinkhorn_piT"])
     nb = (2 * K * N + N) * 4
     ops = cfg.k_sinkhorn * K * N * 11
     bound, by = _bound_ms(nb, ops)
@@ -362,6 +429,8 @@ def check_kernels() -> list:
             checks.append(_held(f"K4 moment ({site})", out_k, out_p,
                                 _k4_tol(out_p),
                                 rerun=torch.equal(out_k, again)))
+        if site == "fuse":
+            checks.append(camera["moment_segment_sum[fuse]"])
         zeros = torch.zeros((Cn, F), device=dev)
         payT = pay.T.contiguous()
         bound, by = _bound_ms((F * Np + Np + F * Cn) * 4, F * Np)
@@ -1251,37 +1320,52 @@ def _edge_belief_operands(seed: int):
     return pe, tail
 
 
-def _captured_belief_operands(cfg, n_scans: int = 10):
-    """The operands K1 and K2 receive on the last scan of a short
-    ``GCConfig.tpu()`` replay (copied on the way in)."""
+# Kernel wrappers whose operands ``_captured_operands`` copies (module,
+# attribute); K4 only at its fuse site.
+_CAPTURED = (("ops.belief_kernels", "predict_evidence_packed"),
+             ("ops.belief_kernels", "scalar_tail_packed"),
+             ("ops.assoc_kernels", "sinkhorn_piT"),
+             ("ops.surfel_kernels", "moment_segment_sum"))
+
+
+def _captured_operands(cfg, camera: bool, n_scans: int = 20) -> dict:
+    """The operands K1, K2, K3 and K4 (fuse site) receive on the last scan
+    of a short ``GCConfig.tpu()`` replay of drifting-odometry scans, camera
+    off or on (copied on the way in): {attribute: (args, kwargs)}, plus
+    ``camera_rows`` (valid camera rows of that scan). The view of the first
+    chunk is empty (the pool is), so the scan is the second chunk's last."""
+    import importlib
+
+    import torch
     from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
-    from fl_slam_tpu_torch.ops import belief_kernels
     from fl_slam_tpu_torch.pipeline import init_state, replay
 
     seen = {}
-    pe_fn = belief_kernels.predict_evidence_packed
-    tail_fn = belief_kernels.scalar_tail_packed
 
-    def pe_hook(c, *ops):
-        seen["pe"] = [t.clone() for t in ops]
-        return pe_fn(c, *ops)
+    def hooked(fn, name):
+        def run(*args, **kw):
+            if kw.get("site", "fuse") == "fuse":
+                seen[name] = ([a.clone() if torch.is_tensor(a) else a
+                               for a in args], dict(kw))
+            return fn(*args, **kw)
+        return run
 
-    def tail_hook(c, *ops):
-        seen["tail"] = [t.clone() for t in ops]
-        return tail_fn(c, *ops)
-
-    ds = simulate(cfg, n_scans=n_scans, seed=SEED + 1,
+    ds = simulate(cfg, n_scans=n_scans, seed=SEED + 1, with_camera=camera,
                   odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
-    belief_kernels.predict_evidence_packed = pe_hook
-    belief_kernels.scalar_tail_packed = tail_hook
+    mods = [(importlib.import_module(f"fl_slam_tpu_torch.{m}"), name)
+            for m, name in _CAPTURED]
+    originals = [getattr(m, name) for m, name in mods]
+    for (m, name), fn in zip(mods, originals):
+        setattr(m, name, hooked(fn, name))
     try:
         replay(init_state(cfg, anchor0=ds.gt_poses[0],
                           t0=float(ds.gt_stamps[0]) - 0.1),
                to_scan_inputs(ds, cfg), cfg)
     finally:
-        belief_kernels.predict_evidence_packed = pe_fn
-        belief_kernels.scalar_tail_packed = tail_fn
-    return seen["pe"], seen["tail"]
+        for (m, name), fn in zip(mods, originals):
+            setattr(m, name, fn)
+    seen["camera_rows"] = int(ds.scans["cam_valid"][-1].sum())
+    return seen
 
 
 def _belief_work(name: str, itemsize: int):
@@ -1305,10 +1389,11 @@ def _belief_work(name: str, itemsize: int):
     return (n_in + n_out) * itemsize, ops
 
 
-def check_belief_kernels() -> list:
+def check_belief_kernels(cam_ops: dict) -> list:
     """Phase 3, K1 and K2: kernel against plain version (both on the card)
-    in f32 and f64, on seeded, captured and edge operands; reruns bit for
-    bit."""
+    in f32 and f64, on seeded operands, operands captured from a camera-off
+    and from a camera-on scan (``cam_ops``), and edge operands; reruns bit
+    for bit."""
     import torch
     from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.ops import belief_kernels as bk
@@ -1317,7 +1402,11 @@ def check_belief_kernels() -> list:
     cfg_edge = GCConfig.tpu(**EDGE_CFG)
     dev = torch.device("cuda")
     seeded = _seeded_belief_operands(SEED)
-    captured = _captured_belief_operands(cfg)
+    off = _captured_operands(cfg, camera=False)
+    captured = [off[k][0][1:] for k in ("predict_evidence_packed",
+                                         "scalar_tail_packed")]
+    camera = [cam_ops[k][0][1:] for k in ("predict_evidence_packed",
+                                          "scalar_tail_packed")]
     edge = _edge_belief_operands(SEED)
     fns = {"predict_evidence": (bk.predict_evidence_packed, bk.pe_math_plain,
                                 0, "fl_slam_tpu/ops/belief_kernels.py:1344"),
@@ -1328,6 +1417,7 @@ def check_belief_kernels() -> list:
         checks, timed = [], None
         for inputs, ops, c in (("seeded", seeded[k], cfg),
                                ("captured", captured[k], cfg),
+                               ("captured camera-on", camera[k], cfg),
                                ("edge", edge[k], cfg_edge)):
             for dt in (torch.float32, torch.float64):
                 x = [t.to(dev, dt) for t in ops]
@@ -1486,9 +1576,11 @@ def _slice(scans, n):
     return type(scans)(*[f[:n] for f in scans])
 
 
-def run_replay(cfg, label: str, want: dict, ds, scans) -> dict:
+def run_replay(cfg, label: str, want: dict, ds, scans,
+               beat_odom: bool = True) -> dict:
     """Phase 4 for one configuration: warm-up chunk, then the counted,
-    sync-checked replay of all scans."""
+    sync-checked replay of all scans (SLAM must beat odometry unless
+    ``beat_odom`` is False)."""
     import numpy as np
     import torch
     from fl_slam_tpu_torch.eval.metrics import ate
@@ -1499,6 +1591,7 @@ def run_replay(cfg, label: str, want: dict, ds, scans) -> dict:
                           t0=float(ds.gt_stamps[0]) - 0.1)
 
     R = cfg.view_refresh_every
+    T = scans.scan_start.shape[0]
     replay(fresh(), _slice(scans, R), cfg)           # warm-up chunk
     torch.cuda.synchronize()
 
@@ -1531,15 +1624,16 @@ def run_replay(cfg, label: str, want: dict, ds, scans) -> dict:
                                  f"{want.get(name, 0)}")
     if syncs:
         raise AssertionError(f"{label}: {syncs} host syncs in the replay")
-    for key in ("trans", "rot_deg"):
+    for key in ("trans", "rot_deg") if beat_odom else ():
         if not m[key]["rmse"] < m_odom[key]["rmse"]:
             raise AssertionError(
                 f"{label}: SLAM does not beat odometry on {key}: "
                 f"{m[key]['rmse']} vs {m_odom[key]['rmse']}")
     result = dict(
-        config=label, scans=N_SCANS, chunks=N_SCANS // R,
-        ms_per_scan=t_run / N_SCANS * 1e3, peak_mem_bytes=peak,
+        config=label, scans=T, chunks=T // R,
+        ms_per_scan=t_run / T * 1e3, peak_mem_bytes=peak,
         ate_trans_m=m["trans"]["rmse"], ate_rot_deg=m["rot_deg"]["rmse"],
+        ate_trans_axis_m=m["trans_axis_rmse"],
         odom_ate_trans_m=m_odom["trans"]["rmse"],
         odom_ate_rot_deg=m_odom["rot_deg"]["rmse"],
         launches=counts, host_syncs_in_replay=syncs)
@@ -1584,7 +1678,33 @@ def main_path() -> dict:
           f"{same}", flush=True)
     if not same:
         raise AssertionError("reruns differ")
+    main["exchange_refresh_flags"] = _exchange_flags(cfg, fresh(), scans)
     return main, ds, scans
+
+
+def _exchange_flags(cfg, state, scans) -> list:
+    """The refresh flag of each K5 launch of one replay (copied on the
+    device as it launches, read once the replay is done): how many of the
+    chunk-boundary exchanges move the slabs."""
+    from fl_slam_tpu_torch.pipeline import replay
+    from fl_slam_tpu_torch.structures import atlas_kernels
+
+    fn = atlas_kernels.conditional_slab_exchange_ff
+    flags = []
+
+    def hooked(*args):
+        flags.append(args[-1].clone())
+        return fn(*args)
+
+    atlas_kernels.conditional_slab_exchange_ff = hooked
+    try:
+        replay(state, scans, cfg)
+    finally:
+        atlas_kernels.conditional_slab_exchange_ff = fn
+    got = [int(f) for f in flags]
+    print(f"exchange: {sum(got)} of {len(got)} K5 launches refresh the "
+          f"slabs ({got})", flush=True)
+    return got
 
 
 def _first_scans(shards, n):
@@ -1592,32 +1712,27 @@ def _first_scans(shards, n):
     return tuple(type(sc)(*[f[:, :n] for f in sc]) for sc in shards)
 
 
-def batched_path() -> dict:
-    """Phase 6: the instance-batched replay of ``GCConfig.tpu()``, B =
-    N_INST instances of N_SCANS drifting-odometry scans (seeds SEED ..
-    SEED + B - 1)."""
+def _batched_run(cfg, dss, label: str) -> dict:
+    """Stage ``dss`` as one batched input (staging seconds printed), run a
+    warm-up chunk, then the counted, sync-checked batched replay of all
+    their scans; hold instance 0 against the single-instance
+    ``insert_page_dense=True`` replay of the same data (< 1e-3). Returns
+    what phases 6 and 10 read and check."""
     import collections
     import re
 
-    import numpy as np
     import torch
     from fl_slam_tpu_torch import certs
-    from fl_slam_tpu_torch.config import GCConfig
-    from fl_slam_tpu_torch.eval.metrics import ate
-    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.io.synthetic import to_scan_inputs
     from fl_slam_tpu_torch.parallel import replicas
     from fl_slam_tpu_torch.pipeline import init_state, replay
 
-    cfg = GCConfig.tpu()
-    B, R = N_INST, cfg.view_refresh_every
+    B, R = len(dss), cfg.view_refresh_every
     t0 = time.perf_counter()
-    dss = [simulate(cfg, n_scans=N_SCANS, seed=SEED + i,
-                    odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
-           for i in range(B)]
     mesh = replicas.make_mesh()
     scans = replicas.shard_scan_inputs(replicas.stack_instances(
         [to_scan_inputs(ds, cfg) for ds in dss]), mesh)
-    print(f"batched staging: {B} instances in "
+    print(f"{label} staging on the card: {B} instances in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     anchors = [ds.gt_poses[0] for ds in dss]
     t0s = [float(ds.gt_stamps[0]) - 0.1 for ds in dss]
@@ -1651,6 +1766,53 @@ def batched_path() -> dict:
         (re.findall(r"batching rule for (\S+?)\.? ", str(w.message))
          or ["?"])[0] for w in caught if _VMAP_FALLBACK in str(w.message))
     del states
+    cfg1 = cfg.replace(insert_page_dense=True)
+    _, one = replay(init_state(cfg1, anchor0=anchors[0], t0=t0s[0]),
+                    to_scan_inputs(dss[0], cfg1), cfg1)
+    diff0 = (out.pose[0] - one.pose).abs().max().item()
+    T = out.pose.shape[1]
+    want = {name: 0 for name in counts}
+    for name in ("predict_evidence[batched]", "scalar_tail[batched]",
+                 "sinkhorn_piT[batched]",
+                 "moment_segment_sum[surfels,batched]",
+                 "moment_segment_sum[fuse,batched]", "page_gather_ff",
+                 "page_writeback_ff"):
+        want[name] = T
+    want["conditional_slab_exchange_ff[batched]"] = T // R
+    for name, n in counts.items():
+        if n != want[name]:
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {want[name]}")
+    if syncs:
+        raise AssertionError(f"{label}: {syncs} host syncs")
+    if not diff0 < 1e-3:
+        raise AssertionError(f"{label}: instance 0 differs from the single "
+                             f"replay by {diff0}")
+    return dict(out=out, counts=counts, syncs=syncs, t_run=t_run, peak=peak,
+                state_bytes=state_bytes, fallbacks=fallbacks, diff0=diff0,
+                run=run, fresh=fresh, scans=scans)
+
+
+def batched_path() -> dict:
+    """Phase 6: the instance-batched replay of ``GCConfig.tpu()``, B =
+    N_INST instances of N_SCANS drifting-odometry scans (seeds SEED ..
+    SEED + B - 1)."""
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.eval.metrics import ate
+    from fl_slam_tpu_torch.io.synthetic import simulate
+
+    cfg = GCConfig.tpu()
+    B, R = N_INST, cfg.view_refresh_every
+    t0 = time.perf_counter()
+    dss = [simulate(cfg, n_scans=N_SCANS, seed=SEED + i,
+                    odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+           for i in range(B)]
+    print(f"batched staging: {B} instances simulated in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    r = _batched_run(cfg, dss, "batched replay")
+    out, t_run, fresh = r["out"], r["t_run"], r["fresh"]
     poses = out.pose.cpu().numpy()
     if poses.shape != (B, N_SCANS, 6) or not np.isfinite(poses).all():
         raise AssertionError(f"batched replay: poses {poses.shape}, finite "
@@ -1663,55 +1825,34 @@ def batched_path() -> dict:
                          ate_rot_deg=m["rot_deg"]["rmse"],
                          odom_ate_trans_m=mo["trans"]["rmse"],
                          odom_ate_rot_deg=mo["rot_deg"]["rmse"]))
-    want = {name: 0 for name in counts}
-    for name in ("predict_evidence[batched]", "scalar_tail[batched]",
-                 "sinkhorn_piT[batched]",
-                 "moment_segment_sum[surfels,batched]",
-                 "moment_segment_sum[fuse,batched]", "page_gather_ff",
-                 "page_writeback_ff"):
-        want[name] = N_SCANS
-    want["conditional_slab_exchange_ff[batched]"] = N_SCANS // R
-
-    # Instance 0 against the single-instance replay of the same data.
-    cfg1 = cfg.replace(insert_page_dense=True)
-    _, one = replay(init_state(cfg1, anchor0=anchors[0], t0=t0s[0]),
-                    to_scan_inputs(dss[0], cfg1), cfg1)
-    diff0 = (out.pose[0] - one.pose).abs().max().item()
 
     # Two 20-scan batched reruns from fresh states.
-    p1 = run(fresh(), _first_scans(scans, N_RERUN))[1][0].pose
-    p2 = run(fresh(), _first_scans(scans, N_RERUN))[1][0].pose
+    p1 = r["run"](fresh(), _first_scans(r["scans"], N_RERUN))[1][0].pose
+    p2 = r["run"](fresh(), _first_scans(r["scans"], N_RERUN))[1][0].pose
     same = bool(torch.equal(p1, p2))
     result = dict(
         config="GCConfig.tpu() batched (insert_page_dense)", instances=B,
         scans=N_SCANS, chunks=N_SCANS // R,
         scan_instances_per_s=B * N_SCANS / t_run,
-        ms_per_batched_scan=t_run / N_SCANS * 1e3, peak_mem_bytes=peak,
-        state_bytes=state_bytes, peak_factor=peak / (B * state_bytes),
-        instances_ate=inst, launches=counts, host_syncs_in_replay=syncs,
-        vmap_fallback_warnings=sum(fallbacks.values()),
-        vmap_fallback_ops=dict(fallbacks),
-        instance0_vs_single_max_pose_diff=diff0,
+        ms_per_batched_scan=t_run / N_SCANS * 1e3, peak_mem_bytes=r["peak"],
+        state_bytes=r["state_bytes"],
+        peak_factor=r["peak"] / (B * r["state_bytes"]),
+        instances_ate=inst, launches=r["counts"],
+        host_syncs_in_replay=r["syncs"],
+        vmap_fallback_warnings=sum(r["fallbacks"].values()),
+        vmap_fallback_ops=dict(r["fallbacks"]),
+        instance0_vs_single_max_pose_diff=r["diff0"],
         rerun_scans=N_RERUN, rerun_identical=same)
     print("batched: " + json.dumps(result), flush=True)
-    for name, n in counts.items():
-        if n != want[name]:
-            raise AssertionError(f"batched replay: {name} launched {n} "
-                                 f"times, expected {want[name]}")
-    if syncs:
-        raise AssertionError(f"batched replay: {syncs} host syncs")
-    for r in inst:
-        if not (r["ate_trans_m"] < r["odom_ate_trans_m"]
-                and r["ate_rot_deg"] < r["odom_ate_rot_deg"]):
+    for r_ in inst:
+        if not (r_["ate_trans_m"] < r_["odom_ate_trans_m"]
+                and r_["ate_rot_deg"] < r_["odom_ate_rot_deg"]):
             raise AssertionError(f"batched replay: instance seed "
-                                 f"{r['seed']} does not beat its odometry: "
-                                 f"{r}")
-    if not diff0 < 1e-3:
-        raise AssertionError(f"batched instance 0 differs from the single "
-                             f"replay by {diff0}")
+                                 f"{r_['seed']} does not beat its odometry: "
+                                 f"{r_}")
     if not same:
         raise AssertionError("batched reruns differ")
-    return counts
+    return r["counts"]
 
 
 def select_path(main: dict, ds, scans) -> dict:
@@ -2043,6 +2184,151 @@ def bag_path() -> dict:
     return counts
 
 
+def camera_path() -> dict:
+    """Phase 10: the camera path on synthetic RGB-D (320 x 240 frames,
+    native features fused with the lidar depth into the first n_feat rows
+    of every scan's measurement batch). (a) The reference's production
+    claim: ``GCConfig.tpu()`` over N_CAMERA drifting-odometry scans, camera
+    off and on, counted and sync-checked, with the valid camera rows per
+    scan, the host staging ms a frame and a 20-scan camera-on rerun bit for
+    bit. (b) The corridor, camera off and on, at the reference test's
+    setting (gated) and at ``GCConfig.tpu()`` (printed). (c) The batched
+    replay camera on, B = N_INST x N_CAMERA_BATCHED scans, instance 0
+    against the single-instance replay. Returns the launch counts of (a)'s
+    camera-on run."""
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    t_phase = time.perf_counter()
+    drift = dict(odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+
+    def want(cfg, T):
+        return {"predict_evidence": T if cfg.belief_kernel else 0,
+                "scalar_tail": T if cfg.belief_kernel else 0,
+                "sinkhorn_piT": T, "moment_segment_sum[surfels]": T,
+                "moment_segment_sum[fuse]": T,
+                "conditional_slab_exchange_ff": T // cfg.view_refresh_every}
+
+    def staged(cfg, n, seed, camera, **kw):
+        t0 = time.perf_counter()
+        ds = simulate(cfg, n_scans=n, seed=seed, with_camera=camera, **kw)
+        return ds, to_scan_inputs(ds, cfg), time.perf_counter() - t0
+
+    # (a) The production claim: the gated runs camera off then on, then
+    # one more replay of each in the other order for the wall clock (it
+    # moves between runs; compare in turns).
+    cfg = GCConfig.tpu()
+    claim, stage_s, inputs, turn_ms = {}, {}, {}, {}
+    for cam in (False, True):
+        ds, inputs[cam], stage_s[cam] = staged(cfg, N_CAMERA, CAMERA_SEED,
+                                               cam, **drift)
+        claim[cam] = run_replay(cfg, f"GCConfig.tpu() camera "
+                                f"{'on' if cam else 'off'}",
+                                want(cfg, N_CAMERA), ds, inputs[cam])
+    valid = ds.scans["cam_valid"].sum(axis=1)
+    on, off = claim[True], claim[False]
+
+    def fresh():
+        return init_state(cfg, anchor0=ds.gt_poses[0],
+                          t0=float(ds.gt_stamps[0]) - 0.1)
+
+    for cam in (True, False):
+        state = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay(state, inputs[cam], cfg)
+        torch.cuda.synchronize()
+        turn_ms[cam] = (time.perf_counter() - t0) / N_CAMERA * 1e3
+    p1 = replay(fresh(), _slice(inputs[True], N_RERUN), cfg)[1].pose
+    p2 = replay(fresh(), _slice(inputs[True], N_RERUN), cfg)[1].pose
+    rerun = bool(torch.equal(p1, p2))
+    del inputs
+
+    # (b) The corridor.
+    corridor = {}
+    for name, c in (("reference setting", GCConfig.small(**CORRIDOR_CFG)),
+                    ("GCConfig.tpu()", cfg)):
+        for cam in (False, True):
+            ds_c, sc, _ = staged(c, N_CORRIDOR, CORRIDOR_SEED, cam,
+                                 world="corridor",
+                                 odom_drift_vel_scale=CORRIDOR_DRIFT)
+            corridor[name, cam] = run_replay(
+                c, f"corridor, {name}, camera {'on' if cam else 'off'}",
+                want(c, N_CORRIDOR), ds_c, sc, beat_odom=False)
+
+    # (c) Batched, camera on.
+    t0 = time.perf_counter()
+    dss = [simulate(cfg, n_scans=N_CAMERA_BATCHED, seed=SEED + i,
+                    with_camera=True, **drift) for i in range(N_INST)]
+    batched_stage_s = time.perf_counter() - t0
+    b = _batched_run(cfg, dss, "camera-on batched replay")
+
+    per_scan = {k: on["launches"][k] / N_CAMERA for k in want(cfg, 1)}
+    ref = corridor["reference setting", False], corridor[
+        "reference setting", True]
+    result = dict(
+        config="GCConfig.tpu()", scans=N_CAMERA, seed=CAMERA_SEED,
+        camera_frame=[320, 240],
+        valid_camera_rows_per_scan={"min": int(valid.min()),
+                                    "mean": float(valid.mean()),
+                                    "of": cfg.n_feat},
+        host_staging_ms_per_frame=(stage_s[True] - stage_s[False])
+        / N_CAMERA * 1e3,
+        staging_s={"camera_on": stage_s[True], "camera_off": stage_s[False]},
+        ms_per_scan_in_turns={
+            "order": "off, on, on, off",
+            "camera_on": [on["ms_per_scan"], turn_ms[True]],
+            "camera_off": [off["ms_per_scan"], turn_ms[False]]},
+        ate_camera_on=[on["ate_trans_m"], on["ate_rot_deg"]],
+        ate_camera_off=[off["ate_trans_m"], off["ate_rot_deg"]],
+        odom_ate=[on["odom_ate_trans_m"], on["odom_ate_rot_deg"]],
+        launches_per_scan=per_scan,
+        host_syncs_in_replay=on["host_syncs_in_replay"],
+        rerun_scans=N_RERUN, rerun_identical=rerun,
+        corridor={f"{name}, camera {'on' if cam else 'off'}": dict(
+            ate_trans_m=r["ate_trans_m"], ate_rot_deg=r["ate_rot_deg"],
+            ate_trans_axis_m=r["ate_trans_axis_m"],
+            odom_ate_trans_m=r["odom_ate_trans_m"],
+            ms_per_scan=r["ms_per_scan"])
+            for (name, cam), r in corridor.items()},
+        batched=dict(instances=N_INST, scans=N_CAMERA_BATCHED,
+                     simulate_s=batched_stage_s,
+                     ms_per_batched_scan=b["t_run"] / N_CAMERA_BATCHED * 1e3,
+                     launches={k: v for k, v in b["counts"].items() if v},
+                     host_syncs_in_replay=b["syncs"],
+                     instance0_vs_single_max_pose_diff=b["diff0"]),
+        phase_s=time.perf_counter() - t_phase)
+    print("camera: " + json.dumps(result), flush=True)
+    print(f"camera: valid rows per scan min {int(valid.min())} mean "
+          f"{valid.mean():.1f} of {cfg.n_feat}; host "
+          f"staging {result['host_staging_ms_per_frame']:.1f} ms a frame; "
+          f"ms/scan in turns off {off['ms_per_scan']:.1f}, on "
+          f"{on['ms_per_scan']:.1f}, on {turn_ms[True]:.1f}, off "
+          f"{turn_ms[False]:.1f}; ATE on {on['ate_trans_m']:.4f} m / "
+          f"{on['ate_rot_deg']:.3f} deg, off {off['ate_trans_m']:.4f} m / "
+          f"{off['ate_rot_deg']:.3f} deg; corridor (reference setting) on "
+          f"{ref[1]['ate_trans_m']:.4f} m, off {ref[0]['ate_trans_m']:.4f} "
+          f"m; phase {result['phase_s']:.1f} s", flush=True)
+    for key, limit in CAMERA_CLAIM.items():
+        if not on[key] < limit:
+            raise AssertionError(f"camera path: camera-on {key} {on[key]} "
+                                 f"is not below {limit}")
+    if not on["ate_trans_m"] < 1.5 * off["ate_trans_m"] + 0.02:
+        raise AssertionError(f"camera path: camera on {on['ate_trans_m']} "
+                             f"m against off {off['ate_trans_m']} m")
+    if not (valid.min() > 0 and rerun):
+        raise AssertionError(f"camera path: valid rows min {valid.min()}, "
+                             f"rerun identical {rerun}")
+    if not ref[1]["ate_trans_m"] < 0.8 * ref[0]["ate_trans_m"]:
+        raise AssertionError(f"camera path: corridor camera on "
+                             f"{ref[1]['ate_trans_m']} m not below 0.8 x "
+                             f"off {ref[0]['ate_trans_m']} m")
+    return on["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2062,8 +2348,11 @@ def main() -> int:
           f"fl_slam_tpu_torch/csrc in {seconds:.1f} s", flush=True)
     print(_card_line(), flush=True)
 
-    rows = (check_kernels() + check_belief_kernels()
+    from fl_slam_tpu_torch.config import GCConfig
+    cam_ops = _captured_operands(GCConfig.tpu(), camera=True)
+    rows = (check_kernels(cam_ops) + check_belief_kernels(cam_ops)
             + check_batched_kernels() + check_render_select_kernels())
+    del cam_ops
     _print_belief_times(rows)
     _print_redesign_times(rows)
     main_run, ds, scans = main_path()
@@ -2072,6 +2361,7 @@ def main() -> int:
     del ds, scans
     rcounts = render_path()
     bag_path()
+    camera_path()
     for row in rows:
         key = row.pop("launch_key")
         # One-instance kernels count in the GCConfig.tpu() replay of phase

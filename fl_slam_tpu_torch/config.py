@@ -653,8 +653,6 @@ _UNPORTED = (
      "k_hyp > 1 (the MHT hypothesis bank) comes with the K>1 bank slice"),
     (lambda c: c.view_page == 0,
      "view_page=0 (the per-slot view path) comes with a later slice"),
-    (lambda c: c.camera_insert_novelty_floor > 0.0,
-     "camera_insert_novelty_floor > 0 comes with the camera slice"),
     (lambda c: not (c.sinkhorn_kernel and c.surfel_moment_kernel
                     and c.fuse_moment_kernel and c.slab_dma_kernel),
      "the port runs its Sinkhorn, moment and slab-exchange kernels always "

@@ -9,11 +9,13 @@ overridden as key=value:
   python -m fl_slam_tpu_torch.eval.accuracy                  # the gate
   python -m fl_slam_tpu_torch.eval.accuracy view_refresh_every=8
   python -m fl_slam_tpu_torch.eval.accuracy --scans 400 --seeds 5 --json r.json
+  python -m fl_slam_tpu_torch.eval.accuracy --camera         # RGB-D camera on
 
 It runs ``GCConfig.tpu()`` on the CUDA device (and raises without one);
 ``--cpu`` asks for the CPU and the small test budgets of ``eval.run_eval``,
 as ``run_eval --cpu`` does (the reference tool runs on the CPU unless asked
-for its accelerator). ``--camera`` comes with the camera slice.
+for its accelerator). ``--camera`` stages the synthetic RGB-D camera's rows
+(``io.synthetic.simulate(with_camera=True)``) into every scan.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import time
 import numpy as np
 
 # The camera-off seed band of the 3-seed mean translation ATE
-# (fl_slam_tpu/config.py:623-624).
+# (fl_slam_tpu/config.py:623-624); reported camera-on too.
 SEED_BAND_M = (0.111, 0.142)
 
 
@@ -43,9 +45,11 @@ def parse_override(s: str):
 
 def evaluate(cfg, *, scans: int = 200, seeds: int = 3,
              drift_vel: float = 1.03, drift_yaw: float = 0.01,
-             world: str = "default", device=None, log=print) -> list:
+             world: str = "default", camera: bool = False, device=None,
+             log=print) -> list:
     """One row per seed: SLAM and raw-odometry ATE, and the replay's wall
-    seconds (the card waited for)."""
+    seconds (the card waited for). ``camera``: the RGB-D camera's rows
+    staged into every scan."""
     from fl_slam_tpu_torch.eval.metrics import ate
     from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
     from fl_slam_tpu_torch.pipeline import init_state, replay
@@ -55,7 +59,7 @@ def evaluate(cfg, *, scans: int = 200, seeds: int = 3,
     rows = []
     for seed in range(seeds):
         ds = simulate(cfg, n_scans=scans, seed=seed, world=world,
-                      odom_drift_vel_scale=drift_vel,
+                      with_camera=camera, odom_drift_vel_scale=drift_vel,
                       odom_drift_yaw_rate=drift_yaw)
         inputs = to_scan_inputs(ds, cfg, device=dev)
         state = init_state(cfg, t0=float(ds.gt_stamps[0]) - 0.1, device=dev)
@@ -86,7 +90,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--cpu", action="store_true",
                     help="the small test budgets on the CPU (default: "
                     "GCConfig.tpu() on the CUDA device)")
-    ap.add_argument("--camera", action="store_true")
+    ap.add_argument("--camera", action="store_true",
+                    help="stage the synthetic RGB-D camera's rows")
     ap.add_argument("--world", default="default",
                     choices=["default", "corridor"],
                     help="corridor: along-track translation unobservable "
@@ -97,9 +102,6 @@ def main(argv=None) -> dict:
     ap.add_argument("overrides", nargs="*",
                     help="GCConfig overrides as key=value")
     args = ap.parse_args(argv)
-    if args.camera:
-        raise NotImplementedError(
-            "fl_slam_tpu_torch: --camera comes with the port's camera slice")
 
     from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.eval.run_eval import small_config
@@ -109,13 +111,15 @@ def main(argv=None) -> dict:
            else GCConfig.tpu(**overrides))
     rows = evaluate(cfg, scans=args.scans, seeds=args.seeds,
                     drift_vel=args.drift_vel, drift_yaw=args.drift_yaw,
-                    world=args.world, device="cpu" if args.cpu else None,
+                    world=args.world, camera=args.camera,
+                    device="cpu" if args.cpu else None,
                     log=lambda s: print(s, flush=True))
     mean = {k: float(np.mean([r[k] for r in rows]))
             for k in rows[0] if k != "seed"}
     result = {"config_overrides": overrides,
               "config": "small" if args.cpu else "tpu",
-              "scans": args.scans, "world": args.world, "rows": rows,
+              "scans": args.scans, "world": args.world,
+              "camera": args.camera, "rows": rows,
               "mean": mean,
               "in_seed_band": bool(SEED_BAND_M[0] <= mean["slam_trans_m"]
                                    <= SEED_BAND_M[1]),

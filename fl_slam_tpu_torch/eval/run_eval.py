@@ -36,7 +36,7 @@ SMALL_SLICE = dict(k_hyp=1, view_page=64, view_refresh_every=2,
                    surfel_moment_kernel=True, fuse_moment_kernel=True,
                    belief_kernel=False, camera_fuse_geom_scale=0.0)
 _CAMERA = ("the camera (--camera / --rgb / --depth) comes with the port's "
-           "camera slice")
+           "camera bag slice")
 
 
 def small_config(**overrides):

@@ -10,7 +10,8 @@ that layout, from a seed, so the staging and the replay run on the real
 bag's shape without a download. ``eval.run_eval --profile kimera`` takes
 the topic names from here.
 
-The fixture's camera topics (``camera=True``) come with the camera slice.
+The fixture's camera topics (``camera=True``) come with the camera bag
+slice.
 """
 
 from __future__ import annotations
@@ -232,7 +233,7 @@ def make_kimera_fixture_bag(out_dir: str, n_scans: int = 5, seed: int = 0,
     /acl_jackal/* topics, VLP-16 field layout, documented covariances,
     10 Hz lidar / 200 Hz IMU / 50 Hz odom, plus the TUM ground-truth file;
     the same messages and file as the reference's for the same arguments.
-    ``camera=True`` (the camera topics) raises until the camera slice.
+    ``camera=True`` (the camera topics) raises until the camera bag slice.
     ``n_az``: azimuth steps per sweep (default 360 -> 5,760
     pts/scan; the real VLP-16 at 10 Hz emits ~1,800 -> 28,800 — use 1800
     for staging-realistic end-to-end benchmarks). Returns
@@ -240,7 +241,7 @@ def make_kimera_fixture_bag(out_dir: str, n_scans: int = 5, seed: int = 0,
     if camera:
         raise NotImplementedError(
             "fl_slam_tpu_torch: the fixture's camera topics come with the "
-            "camera slice")
+            "camera bag slice")
     rng = np.random.default_rng(seed)
     os.makedirs(out_dir, exist_ok=True)
     db = os.path.join(out_dir, "kimera_fixture_0.db3")

@@ -2,13 +2,10 @@
 of ``src/gcio.cpp`` (the port's own build of them; port of
 ``fl_slam_tpu/io/native.py``).
 
-The library is built at first use with g++ into ``fl_slam_tpu_torch/_build/``
-(listed in ``.gitignore``), keyed by the hash of the source and the flags, so
-an edited source rebuilds. The build writes a temporary file and renames it
-into place, so several processes may trigger it at once. A failed build
-raises with the compiler's output: nothing here falls back to the Python
-decoders. Those run only when a caller asks for them
-(``io.rosbag``: ``native_staging=False``).
+The library is built at first use with g++ (``cxx_build``) into
+``BUILD_DIR``; a failed build raises with the compiler's output: nothing
+here falls back to the Python decoders. Those run only when a caller asks
+for them (``io.rosbag``: ``native_staging=False``).
 
 Every ctypes call releases the interpreter lock, so staging in a worker
 thread overlaps the replay in the main thread (``io.rosbag.StreamingStager``).
@@ -17,24 +14,18 @@ thread overlaps the replay in the main thread (``io.rosbag.StreamingStager``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "src" / "gcio.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+from fl_slam_tpu_torch import cxx_build
+
+SOURCE = cxx_build.SRC_DIR / "gcio.cpp"
+BUILD_DIR = cxx_build.BUILD_DIR
 CXX = "g++"
 # build_native.sh's flags. -fno-math-errno / -fno-trapping-math change no
 # value; they let gcc vectorize the staging kernel's sigmoid pass.
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-fno-math-errno",
              "-fno-trapping-math")
-
-_LIBS: dict = {}
-_LOCK = threading.Lock()
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -45,33 +36,12 @@ _i64 = ctypes.c_int64
 _dbl = ctypes.c_double
 
 
-def _target(build_dir: Path) -> Path:
-    h = hashlib.sha1(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return Path(build_dir) / f"gcio-{h.hexdigest()[:12]}.so"
-
-
-def build(build_dir=None) -> Path:
+def build(build_dir=None):
     """Compile ``src/gcio.cpp`` with ``CXX`` into ``build_dir`` (default
     ``BUILD_DIR``) unless its library is built there; returns the library's
     path. Raises RuntimeError when the compiler fails or is missing."""
-    out = _target(BUILD_DIR if build_dir is None else build_dir)
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"building libgcio: {cmd[0]} did not run ({e})") \
-            from e
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building libgcio failed ({' '.join(cmd)}):\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, out)
-    return out
+    return cxx_build.build("gcio", SOURCE, CXX_FLAGS,
+                           BUILD_DIR if build_dir is None else build_dir, CXX)
 
 
 def _bind(lib):
@@ -103,15 +73,7 @@ def _bind(lib):
 def library():
     """The built and bound library (built at first use; raises when the
     build fails)."""
-    path = _target(BUILD_DIR)
-    lib = _LIBS.get(path)
-    if lib is None:
-        with _LOCK:
-            lib = _LIBS.get(path)
-            if lib is None:
-                lib = _bind(ctypes.CDLL(str(build())))
-                _LIBS[path] = lib
-    return lib
+    return cxx_build.library("gcio", SOURCE, CXX_FLAGS, BUILD_DIR, CXX, _bind)
 
 
 def _pack(blobs):

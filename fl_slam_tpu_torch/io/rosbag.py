@@ -15,8 +15,8 @@ there; the camera-off slice (zeros, colours 0.5) is built on the card, not
 uploaded. The reference's u16-quantized upload is not ported (and with it
 the stamp-range defect of its quantizer).
 
-The camera (``CameraTopics``, the RGB-D slice) comes with the camera slice:
-asking for it raises ``NotImplementedError``.
+The camera from a bag (``CameraTopics``, the RGB-D slice) comes with the
+camera bag slice: asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.io import cdr, native
 
 TIME_REBASE_MARGIN_S = 16.0
-_CAMERA = "fl_slam_tpu_torch: camera staging comes with the camera slice"
+_CAMERA = ("fl_slam_tpu_torch: camera staging from a bag comes with the "
+           "camera bag slice")
 _STAGED = tuple(native.stage_shapes(1, 1))       # the 12 staged fields
 
 
@@ -70,7 +71,7 @@ class BagTopics(NamedTuple):
 
 class CameraTopics(NamedTuple):
     """RGB-D topics (compressed colour + raw depth). Staging them comes with
-    the camera slice; passing them raises."""
+    the camera bag slice; passing them raises."""
 
     rgb: str
     depth: str
@@ -79,7 +80,7 @@ class CameraTopics(NamedTuple):
 def load_calibration(path: str) -> dict:
     """Rig calibration JSON -> {T_base_lidar (4, 4), T_base_cam (4, 4),
     intrinsics {fx, fy, cx, cy, width, height}}, each where present.
-    The intrinsics stay a plain dict until the camera slice."""
+    The intrinsics stay a plain dict until the camera bag slice."""
     with open(path) as fh:
         raw = json.load(fh)
     out = {}

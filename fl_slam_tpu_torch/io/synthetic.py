@@ -1,7 +1,11 @@
 """Synthetic ground-robot dataset generator (host-side, numpy; the port's
 own copy of ``fl_slam_tpu/io/synthetic.py``, producing the same data from the
-same seed, with ``to_scan_inputs`` building torch tensors. Camera (RGB-D)
-staging comes with the camera slice: ``with_camera=True`` raises).
+same seed, with ``to_scan_inputs`` building torch tensors). With
+``with_camera=True`` each scan also carries the camera rows of an analytic
+RGB-D render at the scan clock (``render_rgbd``), staged by
+``camera.features`` and ``camera.depth_fusion``; the frames are rendered in
+a thread pool (numpy and the native extractor release the interpreter
+lock), with the same result as one after the other.
 
 Replaces the Kimera rosbag for development/eval when the bag is unavailable
 (the reference dataset `10_14_acl_jackal-005` is not shipped with the repo).
@@ -17,6 +21,8 @@ all directions.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +52,51 @@ class PlanePatch(NamedTuple):
     half2: float
 
 
+def _texture(p):
+    """Procedural RGB texture from world position (gives corners)."""
+    f = 2.5
+    a = np.sin(f * p[..., 0]) * np.sin(f * p[..., 1] + 1.3)
+    b = np.sin(1.7 * f * p[..., 1] + 0.4) * np.sin(1.3 * f * p[..., 2] + 2.1)
+    checker = ((np.floor(p[..., 0] * 2) + np.floor(p[..., 1] * 2)
+                + np.floor(p[..., 2] * 2)) % 2)
+    r = 0.35 + 0.3 * checker + 0.2 * a
+    g = 0.35 + 0.25 * (1 - checker) + 0.2 * b
+    bl = 0.4 + 0.25 * a * b
+    return np.clip(np.stack([r, g, bl], axis=-1), 0.0, 1.0)
+
+
+def render_rgbd(pose6, intr, planes, znear=0.15, zfar=25.0):
+    """Analytic RGBD of the plane-patch world from a camera pose
+    (camera: z forward, x right, y down). Returns (rgb uint8, depth f32)."""
+    R = _rotvec_R(pose6[3:6])
+    o = np.asarray(pose6[:3], dtype=np.float64)
+    H, W = intr.height, intr.width
+    uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+    d_cam = np.stack([(uu - intr.cx) / intr.fx,
+                      (vv - intr.cy) / intr.fy,
+                      np.ones_like(uu, dtype=np.float64)], axis=-1)
+    d_w = d_cam @ R.T                                   # (H, W, 3)
+    depth = np.full((H, W), np.inf)
+    hit_p = np.zeros((H, W, 3))
+    for pl in planes:
+        dn = d_w @ pl.normal
+        t = ((pl.center - o) @ pl.normal) / np.where(np.abs(dn) > 1e-9, dn,
+                                                     np.inf)
+        pw = o + t[..., None] * d_w
+        rel = pw - pl.center
+        ok = ((t > znear) & (t < zfar)
+              & (np.abs(rel @ pl.e1) <= pl.half1)
+              & (np.abs(rel @ pl.e2) <= pl.half2)
+              & (t < depth))
+        depth = np.where(ok, t, depth)
+        hit_p = np.where(ok[..., None], pw, hit_p)
+    got = np.isfinite(depth)
+    rgb = np.where(got[..., None], _texture(hit_p), 0.1)
+    rgb8 = (rgb * 255).astype(np.uint8)
+    d32 = np.where(got, depth, 0.0).astype(np.float32)
+    return rgb8, d32
+
+
 def _R_to_rotvec(R):
     tr = np.clip((np.trace(R) - 1.0) * 0.5, -1.0, 1.0)
     th = np.arccos(tr)
@@ -62,6 +113,16 @@ def _rotvec_R(rv):
     k = rv / th
     K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
     return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+
+# camera->base extrinsic: cam z forward -> body x, cam x right -> body -y,
+# cam y down -> body -z; camera 0.3 m above body origin looking forward.
+T_BASE_CAM = np.array([
+    [0.0, 0.0, 1.0, 0.1],
+    [-1.0, 0.0, 0.0, 0.0],
+    [0.0, -1.0, 0.0, 0.3],
+    [0.0, 0.0, 0.0, 1.0],
+])
 
 
 def _yaw_rot(yaw):
@@ -232,16 +293,16 @@ def simulate(cfg: GCConfig, n_scans: int = 60, scan_hz: float = 10.0,
              odom_drift_vel_scale: float = 1.0, odom_drift_yaw_rate: float = 0.0,
              speed: float = 0.8, turn_rate: float = 0.15,
              sweep_frac: float = 0.9, with_camera: bool = False,
+             cam_width: int = 320, cam_height: int = 240,
              world: str = "default") -> SyntheticDataset:
     """Generate a stacked ScanInput dict + ground truth.
 
     ``world``: "default" (ground + alternating wall segments along an arc)
     or "corridor" (straight trajectory, two continuous smooth walls —
     along-track translation unobservable from lidar geometry; the
-    camera-advantaged scenario)."""
-    if with_camera:
-        raise NotImplementedError(
-            "fl_slam_tpu_torch: camera staging comes with the camera slice")
+    camera-advantaged scenario). ``with_camera``: fill the ``cam_*``
+    fields from a ``cam_width`` x ``cam_height`` RGB-D render at each scan
+    clock (zeros, colors 0.5, without)."""
     rng = np.random.default_rng(seed)
     if world == "corridor":
         turn_rate = 0.0
@@ -368,11 +429,51 @@ def simulate(cfg: GCConfig, n_scans: int = 60, scan_hz: float = 10.0,
         out["odom_omega_body"][i] = (traj.omega_body(t0)
                                      + rng.normal(0, odom_omega_noise, 3))
 
-
+    if with_camera:
+        _stage_camera(out, traj, planes, np.arange(T) * period, cfg,
+                      cam_width, cam_height)
     gt = traj.pose6(np.arange(T) * period)
     return SyntheticDataset(scans=out, gt_poses=gt, gt_stamps=gt_stamps,
                             world_points=world, world_normals=normals,
                             planes=planes)
+
+
+def _stage_camera(out: dict, traj: _Trajectory, planes, t_scan, cfg,
+                  cam_width: int, cam_height: int) -> None:
+    """The ``cam_*`` fields of every scan, in place: the RGB-D frame at the
+    scan clock, native features, fused with the scan's lidar points (body
+    frame) moved into the camera frame. Draws nothing from the seed's
+    generator, so it runs after the sensor loop, one frame a thread."""
+    from fl_slam_tpu_torch.camera.depth_fusion import (camera_slice_fields,
+                                                       splat_prep_fused)
+    from fl_slam_tpu_torch.camera.features import (PinholeIntrinsics,
+                                                   extract_features)
+    intr = PinholeIntrinsics(fx=0.6 * cam_width, fy=0.6 * cam_width,
+                             cx=cam_width / 2.0, cy=cam_height / 2.0,
+                             width=cam_width, height=cam_height)
+    R_bc = T_BASE_CAM[:3, :3]
+    t_bc = T_BASE_CAM[:3, 3]
+
+    def frame(i):
+        Tb = np.eye(4)
+        Tb[:3, :3] = traj.rot(t_scan[i])
+        Tb[:3, 3] = traj.pos(t_scan[i])
+        Tc = Tb @ T_BASE_CAM
+        pose_c = np.concatenate([Tc[:3, 3], _R_to_rotvec(Tc[:3, :3])])
+        rgb, depth = render_rgbd(pose_c, intr, planes)
+        feats = extract_features(rgb, depth, intr, cfg.n_feat)
+        pts_cam = (out["points"][i] - t_bc) @ R_bc
+        fused = splat_prep_fused(feats, intr, pts_cam)
+        return camera_slice_fields(fused, T_BASE_CAM, cfg.vmf_n_lobes)
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        for i, fields in enumerate(ex.map(frame, range(len(t_scan)))):
+            out["cam_Lambdas"][i] = fields["Lambdas"]
+            out["cam_thetas"][i] = fields["thetas"]
+            out["cam_etas"][i] = fields["etas"]
+            out["cam_weights"][i] = fields["weights"]
+            out["cam_valid"][i] = fields["valid"]
+            out["cam_colors"][i] = fields["colors"]
 
 
 def to_scan_inputs(ds: SyntheticDataset, cfg: GCConfig, device=None):

@@ -679,6 +679,13 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
     nov = assoc_ops.novelty_mass(assoc)
     if not cfg.camera_insert:
         nov = nov * (batch_w.sources == mb.SOURCE_LIDAR).to(nov.dtype)
+    elif cfg.camera_insert_novelty_floor > 0.0:
+        # Geometry-explained is not appearance-explained: valid camera rows
+        # keep at least the floor's novelty, so texture landmarks on
+        # lidar-covered surfaces can enter the map.
+        is_cam = (batch_w.sources == mb.SOURCE_CAMERA) & batch_w.valid
+        nov = torch.where(is_cam, torch.clamp(
+            nov, min=cfg.camera_insert_novelty_floor), nov)
     meas_keys = tile_keys_from_xyz(mb.mean_positions(batch_t, cfg.eps_lift),
                                    cfg.h_tile)
     sff, c, page_stats = atlas_ops.ff_insert(

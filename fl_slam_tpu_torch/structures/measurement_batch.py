@@ -11,6 +11,7 @@ import torch
 from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.core.linalg import inv3x3
+from fl_slam_tpu_torch.runtime import resolve_device
 
 SOURCE_CAMERA = 0
 SOURCE_LIDAR = 1
@@ -26,9 +27,59 @@ class MeasurementBatch(NamedTuple):
     sources: torch.Tensor   # (N,) int32: 0 camera, 1 lidar
 
 
+def empty_batch(cfg: GCConfig, device=None) -> MeasurementBatch:
+    """``n_meas`` invalid rows, all marked LiDAR, colors 0.5, on ``device``
+    (default: the CUDA device; raises without one)."""
+    n, dt = cfg.n_meas, cfg.torch_dtype
+    device = resolve_device(device)
+    return MeasurementBatch(
+        Lambdas=torch.zeros((n, 3, 3), dtype=dt, device=device),
+        thetas=torch.zeros((n, 3), dtype=dt, device=device),
+        etas=torch.zeros((n, cfg.vmf_n_lobes, 3), dtype=dt, device=device),
+        weights=torch.zeros((n,), dtype=dt, device=device),
+        valid=torch.zeros((n,), dtype=torch.bool, device=device),
+        colors=torch.full((n, 3), 0.5, dtype=dt, device=device),
+        sources=torch.full((n,), SOURCE_LIDAR, dtype=torch.int32,
+                           device=device))
+
+
+def _with_rows(batch: MeasurementBatch, rows: slice, source: int,
+               **fields) -> MeasurementBatch:
+    out = {}
+    for k, v in fields.items():
+        out[k] = getattr(batch, k).clone()
+        out[k][rows] = v
+    out["sources"] = batch.sources.clone()
+    out["sources"][rows] = source
+    return batch._replace(**out)
+
+
+def with_lidar_surfels(batch: MeasurementBatch, cfg: GCConfig, *, Lambdas,
+                       thetas, etas, weights, valid,
+                       colors=None) -> MeasurementBatch:
+    """The batch with its LiDAR rows ``[n_feat, n_meas)`` set to the
+    surfels' (colors 0.5 when not given)."""
+    if colors is None:
+        colors = torch.full((cfg.n_surfel, 3), 0.5, dtype=cfg.torch_dtype,
+                            device=weights.device)
+    return _with_rows(batch, slice(cfg.n_feat, cfg.n_feat + cfg.n_surfel),
+                      SOURCE_LIDAR, Lambdas=Lambdas, thetas=thetas,
+                      etas=etas, weights=weights, valid=valid, colors=colors)
+
+
+def with_camera_features(batch: MeasurementBatch, cfg: GCConfig, *, Lambdas,
+                         thetas, etas, weights, valid,
+                         colors) -> MeasurementBatch:
+    """The batch with its camera rows ``[0, n_feat)`` set to the features'
+    (``camera.depth_fusion.camera_slice_fields``)."""
+    return _with_rows(batch, slice(0, cfg.n_feat), SOURCE_CAMERA,
+                      Lambdas=Lambdas, thetas=thetas, etas=etas,
+                      weights=weights, valid=valid, colors=colors)
+
+
 def from_slices(cfg: GCConfig, *, cam: dict, lidar: dict) -> MeasurementBatch:
-    """Camera rows then LiDAR rows (``empty_batch`` + ``with_lidar_surfels``
-    + ``with_camera_features`` of the reference, in one concatenation)."""
+    """Camera rows then LiDAR rows: ``empty_batch`` + ``with_lidar_surfels``
+    + ``with_camera_features`` in one concatenation (the replay's form)."""
     dev = lidar["weights"].device
     lid_colors = lidar.get("colors")
     if lid_colors is None:

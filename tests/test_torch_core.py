@@ -71,8 +71,8 @@ def test_config_copy_matches_reference(make):
 
 @pytest.mark.parametrize("override", [
     dict(k_hyp=4), dict(surfel_moment_kernel=False), dict(view_page=0),
-    dict(camera_insert_novelty_floor=0.1), dict(slab_dma_kernel=False),
-    dict(fuse_moment_kernel=False), dict(sinkhorn_kernel=False)])
+    dict(slab_dma_kernel=False), dict(fuse_moment_kernel=False),
+    dict(sinkhorn_kernel=False)])
 def test_require_slice_raises_for_unported_switches(override):
     tcfg.require_slice(tcfg.GCConfig.small(**SLICE))
     tcfg.require_slice(tcfg.GCConfig.tpu(belief_kernel=False))
@@ -83,11 +83,13 @@ def test_require_slice_raises_for_unported_switches(override):
 @pytest.mark.parametrize("override", [
     dict(), dict(belief_kernel=False), dict(odom_pose_relative=True),
     dict(belief_kernel=False, odom_pose_relative=True),
-    dict(insert_page_dense=True), dict(select_kernel=True)])
+    dict(insert_page_dense=True), dict(select_kernel=True),
+    dict(camera_insert_novelty_floor=0.1)])
 def test_require_slice_accepts_the_production_config(override):
     """``GCConfig.tpu()`` itself runs: the belief kernels and the relative
     odometry factor are ported, on both belief branches, and so are the
-    dense-page insert of the batched replay and the fused selection K9."""
+    dense-page insert of the batched replay, the fused selection K9 and the
+    camera-insert novelty floor."""
     cfg = tcfg.GCConfig.tpu(**override)
     assert tcfg.require_slice(cfg) is cfg
 

@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import fl_slam_tpu.camera.features as jfeatures
 from fl_slam_tpu import certs as jcerts
 from fl_slam_tpu import pipeline as jp
 from fl_slam_tpu.config import GCConfig as JCfg
@@ -250,15 +251,10 @@ def test_every_upload_is_one_copy(cfgs, bag):
     assert len(storages(staged, sent)) == 1
 
 
-def test_accuracy_tool_matches_reference(cfgs, jax_run, tmp_path):
-    out = tmp_path / "acc.json"
-    r = accuracy.main(["--cpu", "--scans", "10", "--seeds", "2", "--json",
-                       str(out)])
-    assert json.loads(out.read_text())["rows"] == r["rows"]
-    jc = cfgs[1]
-    for row in r["rows"]:
+def _accuracy_rows_match_reference(rows, jc, jax_run, camera):
+    for row in rows:
         ds = jsyn.simulate(jc, n_scans=10, seed=row["seed"],
-                           odom_drift_vel_scale=1.03,
+                           with_camera=camera, odom_drift_vel_scale=1.03,
                            odom_drift_yaw_rate=0.01)
         state = jp.init_state(jc, t0=float(ds.gt_stamps[0]) - 0.1)
         _, poses, _ = jax_run(state, {k: np.asarray(v)
@@ -270,8 +266,21 @@ def test_accuracy_tool_matches_reference(cfgs, jax_run, tmp_path):
                           ("odom_trans_m", o["trans"]["rmse"]),
                           ("odom_rot_deg", o["rot_deg"]["rmse"])):
             assert row[key] == pytest.approx(want, rel=0, abs=1e-8), key
-    with pytest.raises(NotImplementedError, match="camera slice"):
-        accuracy.main(["--cpu", "--camera"])
+
+
+def test_accuracy_tool_matches_reference(cfgs, jax_run, tmp_path):
+    """Camera off, then on (the JAX package staging its own camera rows
+    with its native extractor)."""
+    out = tmp_path / "acc.json"
+    r = accuracy.main(["--cpu", "--scans", "10", "--seeds", "2", "--json",
+                       str(out)])
+    assert json.loads(out.read_text())["rows"] == r["rows"]
+    assert r["camera"] is False
+    _accuracy_rows_match_reference(r["rows"], cfgs[1], jax_run, False)
+    r = accuracy.main(["--cpu", "--camera", "--scans", "10", "--seeds", "2"])
+    assert r["camera"] is True and len(r["rows"]) == 2
+    _accuracy_rows_match_reference(r["rows"], cfgs[1], jax_run, True)
+    assert jfeatures.LAST_BACKEND == "native"
 
 
 def test_bench_prints_one_json_line(capsys):
@@ -310,7 +319,7 @@ def test_entry_points_refuse_without_a_card(monkeypatch, bag, tmp_path,
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     for argv in (["--camera"], ["--rgb", "/c", "--depth", "/d"]):
-        with pytest.raises(NotImplementedError, match="camera slice"):
+        with pytest.raises(NotImplementedError, match="camera bag slice"):
             run_eval.main(["--out", str(tmp_path / "z"), "--cpu"] + argv)
 
 
@@ -345,32 +354,82 @@ def _bag_metrics(poses, stamps_abs, gt_path, odom=None):
             "rpe1_rot_deg": r["rot_deg"]["rmse"]}
 
 
-@pytest.mark.slow
-def test_full_size_accuracy_gate_matches_reference():
+def _full_size_gate_beside_reference(camera: bool):
     """The 3-seed x 200-scan gate, GCConfig.tpu() in f32 on the CPU: the
-    port's ``eval.accuracy`` against the JAX package seed by seed."""
-    rows = accuracy.evaluate(TCfg.tpu(), device="cpu")
+    port's ``eval.accuracy`` against the JAX package seed by seed (1e-3 m,
+    0.0573 deg); returns the rows and the JAX package's ATE per seed."""
+    rows = accuracy.evaluate(TCfg.tpu(), camera=camera, device="cpu")
     jc = JCfg.tpu()
     run = jp.replay_jit(jc)
+    jrows = []
     for row in rows:
         ds = jsyn.simulate(jc, n_scans=200, seed=row["seed"],
-                           odom_drift_vel_scale=1.03,
+                           with_camera=camera, odom_drift_vel_scale=1.03,
                            odom_drift_yaw_rate=0.01)
         _, out = run(jp.init_state(jc, t0=float(ds.gt_stamps[0]) - 0.1),
                      jsyn.to_scan_inputs(ds, jc))
         a = jmetrics.ate(np.asarray(out.pose), ds.gt_poses)
-        print(f"seed {row['seed']}: port {row['slam_trans_m']:.4f} m / "
-              f"{row['slam_rot_deg']:.4f} deg, JAX {a['trans']['rmse']:.4f}"
-              f" m / {a['rot_deg']['rmse']:.4f} deg, odometry "
-              f"{row['odom_trans_m']:.4f} m / {row['odom_rot_deg']:.4f} deg")
-        assert row["slam_trans_m"] == pytest.approx(a["trans"]["rmse"],
-                                                    rel=0, abs=1e-3)
-        assert row["slam_rot_deg"] == pytest.approx(a["rot_deg"]["rmse"],
-                                                    rel=0, abs=0.0573)
+        jrows.append((a["trans"]["rmse"], a["rot_deg"]["rmse"]))
+        print(f"camera {camera}, seed {row['seed']}: port "
+              f"{row['slam_trans_m']:.4f} m / {row['slam_rot_deg']:.4f} deg,"
+              f" JAX {a['trans']['rmse']:.4f} m / {a['rot_deg']['rmse']:.4f}"
+              f" deg, odometry {row['odom_trans_m']:.4f} m / "
+              f"{row['odom_rot_deg']:.4f} deg")
+    if camera:
+        assert jfeatures.LAST_BACKEND == "native"
+    jm = np.mean(jrows, axis=0)
+    print(f"camera {camera}, 3-seed mean: port "
+          f"{np.mean([r['slam_trans_m'] for r in rows]):.4f} m / "
+          f"{np.mean([r['slam_rot_deg'] for r in rows]):.4f} deg, JAX "
+          f"{jm[0]:.4f} m / {jm[1]:.4f} deg")
+    for row, (j_trans, j_rot) in zip(rows, jrows):
+        assert row["slam_trans_m"] == pytest.approx(j_trans, rel=0,
+                                                    abs=1e-3), row
+        assert row["slam_rot_deg"] == pytest.approx(j_rot, rel=0,
+                                                    abs=0.0573), row
         assert row["slam_trans_m"] < row["odom_trans_m"]
         assert row["slam_rot_deg"] < row["odom_rot_deg"]
+    return rows
+
+
+@pytest.mark.slow
+def test_full_size_accuracy_gate_matches_reference():
+    rows = _full_size_gate_beside_reference(camera=False)
     mean = np.mean([r["slam_trans_m"] for r in rows])
     assert accuracy.SEED_BAND_M[0] <= mean <= accuracy.SEED_BAND_M[1]
+
+
+@pytest.mark.slow
+def test_full_size_camera_accuracy_gate_matches_reference():
+    """The same gate camera on (the RGB-D rows staged by each package's
+    native extractor). The camera-off seed band does not apply."""
+    _full_size_gate_beside_reference(camera=True)
+
+
+@pytest.mark.slow
+def test_full_size_camera_f64_replay_matches_reference():
+    """Seed 1 of the camera-on gate in f64 (``GCConfig.tpu(dtype=
+    "float64")``, 200 scans), both packages on the CPU from the same state:
+    the poses at the f64 pipeline tolerance. Where the f32 gate's packages
+    part, this says whether the port computes the reference's numbers."""
+    jc, tc = JCfg.tpu(dtype="float64"), TCfg.tpu(dtype="float64")
+    ds = jsyn.simulate(jc, n_scans=200, seed=1, with_camera=True,
+                       odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+    assert jfeatures.LAST_BACKEND == "native"
+    js = jp.init_state(jc, t0=float(ds.gt_stamps[0]) - 0.1)
+    _, jo = jp.replay_jit(jc)(js, jsyn.to_scan_inputs(ds, jc))
+    ts = pipeline.init_state(tc, t0=float(ds.gt_stamps[0]) - 0.1,
+                             device="cpu")
+    _, to = pipeline.replay(ts, tsyn.to_scan_inputs(ds, tc, device="cpu"),
+                            tc, device="cpu")
+    gap = np.abs(to.pose.numpy() - np.asarray(jo.pose)).max(axis=1)
+    a = jmetrics.ate(np.asarray(jo.pose), ds.gt_poses)
+    b = jmetrics.ate(to.pose.numpy(), ds.gt_poses)
+    print(f"camera-on f64, seed 1: port {b['trans']['rmse']:.6f} m / "
+          f"{b['rot_deg']['rmse']:.6f} deg, JAX {a['trans']['rmse']:.6f} m "
+          f"/ {a['rot_deg']['rmse']:.6f} deg; max pose gap {gap.max():.3g} "
+          f"(scan {int(gap.argmax())})")
+    assert gap.max() < 1e-6
 
 
 @pytest.mark.slow

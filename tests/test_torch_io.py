@@ -263,16 +263,16 @@ def test_anchor_and_time_alignment_match_reference(bag, rng):
 def test_camera_and_quantized_upload_refuse(bag, tmp_path):
     cfg = TCfg.small()
     cam = rosbag.CameraTopics(rgb="/rgb", depth="/depth")
-    with pytest.raises(NotImplementedError, match="camera slice"):
+    with pytest.raises(NotImplementedError, match="camera bag slice"):
         rosbag.load_scan_records(bag[0], kimera.KIMERA_TOPICS, cfg,
                                  cam_topics=cam)
-    with pytest.raises(NotImplementedError, match="camera slice"):
+    with pytest.raises(NotImplementedError, match="camera bag slice"):
         rosbag.StreamingStager(bag[0], kimera.KIMERA_TOPICS, cfg, SEG,
                                cam_topics=cam, device="cpu")
     with pytest.raises(NotImplementedError, match="quantized"):
         rosbag.StreamingStager(bag[0], kimera.KIMERA_TOPICS, cfg, SEG,
                                upload_quant=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="camera slice"):
+    with pytest.raises(NotImplementedError, match="camera bag slice"):
         kimera.make_kimera_fixture_bag(str(tmp_path / "c"), n_scans=1,
                                        camera=True)
 

@@ -262,8 +262,8 @@ def test_kernel_branch_drifting_gate_and_determinism(dtype):
 
 
 def test_host_layer_copies_match_reference():
-    """The port's own simulate / to_scan_inputs / ate / rpe give the
-    reference's numbers from the same seed."""
+    """The port's own simulate (camera off and on) / to_scan_inputs / ate /
+    rpe give the reference's numbers from the same seed."""
     jc, tc = JCfg.small(**SLICE), TCfg.small(**SLICE)
     a = jsyn.simulate(jc, n_scans=8, **DRIFT)
     b = tsyn.simulate(tc, n_scans=8, **DRIFT)
@@ -277,8 +277,11 @@ def test_host_layer_copies_match_reference():
     assert tmetrics.ate(est, a.gt_poses) == jmetrics.ate(est, a.gt_poses)
     assert tmetrics.rpe(est, a.gt_poses, 0.2) == jmetrics.rpe(est, a.gt_poses,
                                                               0.2)
-    with pytest.raises(NotImplementedError, match="camera slice"):
-        tsyn.simulate(tc, n_scans=2, with_camera=True)
+    a = jsyn.simulate(jc, n_scans=2, with_camera=True, **DRIFT)
+    b = tsyn.simulate(tc, n_scans=2, with_camera=True, **DRIFT)
+    for k in a.scans:
+        np.testing.assert_array_equal(a.scans[k], b.scans[k], err_msg=k)
+    assert b.scans["cam_valid"].sum() > 0
 
 
 def test_entry_points_refuse_silent_cpu(monkeypatch):
@@ -305,12 +308,14 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference_package():
-    """With ``jax`` and ``fl_slam_tpu`` poisoned in ``sys.modules``, the
-    port imports and runs a 2-scan CPU replay."""
+    """With ``jax``, ``fl_slam_tpu`` and ``cv2`` poisoned in
+    ``sys.modules``, the port imports and runs a 2-scan CPU replay, camera
+    off and on."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["fl_slam_tpu"] = None
+        sys.modules["cv2"] = None
         import pkgutil, importlib, numpy as np
         import fl_slam_tpu_torch
         for m in pkgutil.walk_packages(fl_slam_tpu_torch.__path__,
@@ -322,14 +327,16 @@ def test_port_imports_neither_jax_nor_reference_package():
         cfg = GCConfig.small(k_hyp=1, view_page=64, view_refresh_every=2,
                              belief_kernel=False, surfel_moment_kernel=True,
                              fuse_moment_kernel=True)
-        ds = simulate(cfg, n_scans=2, seed=0)
-        st = init_state(cfg, anchor0=ds.gt_poses[0],
-                        t0=float(ds.gt_stamps[0]) - 0.1, device="cpu")
-        _, out = replay(st, to_scan_inputs(ds, cfg, device="cpu"), cfg,
-                        device="cpu")
-        assert np.isfinite(out.pose.numpy()).all()
-        assert not any(k == "jax" or k.startswith(("jax.", "jaxlib",
-                                                   "fl_slam_tpu."))
+        for camera in (False, True):
+            ds = simulate(cfg, n_scans=2, seed=0, with_camera=camera)
+            assert (ds.scans["cam_valid"].sum() > 0) == camera
+            st = init_state(cfg, anchor0=ds.gt_poses[0],
+                            t0=float(ds.gt_stamps[0]) - 0.1, device="cpu")
+            _, out = replay(st, to_scan_inputs(ds, cfg, device="cpu"), cfg,
+                            device="cpu")
+            assert np.isfinite(out.pose.numpy()).all()
+        assert not any(k in ("jax", "cv2") or k.startswith(
+            ("jax.", "jaxlib", "fl_slam_tpu.", "cv2."))
                        for k, v in sys.modules.items() if v is not None)
         print("ISOLATED_OK")
     """)
