@@ -89,6 +89,21 @@ Phases (any failure raises and the script exits non-zero without a result):
      same at ``GCConfig.tpu()``, printed; (c) the batched replay camera
      on, B = 8 x 20 scans (seeds 3-10), counted, sync-checked, instance 0
      against the single-instance replay.
+ 11. the camera from a bag: write a 200-scan Kimera-layout fixture bag with
+     the RGB-D camera (``camera=True``: two 424 x 240 JPEG / 16UC1 frames a
+     scan, ``n_az`` 1,800, seed 0) and run ``eval.run_eval --profile kimera
+     --calib <bag>/fixture_calibration.json --gt --seg-len 100 --stream``
+     on it, every frame decoded and its features extracted live in the
+     staging thread, then again with the feature sidecar
+     (``camera.feature_cache.build_sidecar``): each run checked as phase 9
+     (gates, native staging, 0 host syncs inside each segment's replay,
+     K1-K5's launches a scan as camera off, ATE and RPE@1m in the bands),
+     camera rows in every scan (the valid rows a scan, min and mean), the
+     audit naming the sidecar in the second run only, the live run's poses
+     bit for bit those of one ``replay`` over the same staged scans, the
+     pose gap between the runs printed; K1-K4 held to their plain versions
+     on the operands of one camera-on bag scan (phase 3's tolerances); the
+     staging ms a scan and the staging-included scans/s beside phase 9's.
 Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched in
 f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64: stage 1 bit
 for bit against ``tile_params`` on the seeded scene, at its edges and at
@@ -115,6 +130,7 @@ import warnings
 
 N_SCANS = 100
 N_BAG, BAG_SEG, BAG_N_AZ = 300, 100, 1800   # phase 9's fixture and segments
+N_CAM_BAG, CAM_BAG_SEG = 200, 100           # phase 11's (seed 0, n_az 1,800)
 # test_fixture_full_metrics_gate's bands (tests/test_kimera_layout_parity.py)
 BAG_BANDS = {"ate_trans_m": 0.6, "ate_rot_deg": 18.0,
              "rpe1_trans_m": 0.35, "rpe1_rot_deg": 2.5}
@@ -1328,17 +1344,13 @@ _CAPTURED = (("ops.belief_kernels", "predict_evidence_packed"),
              ("ops.surfel_kernels", "moment_segment_sum"))
 
 
-def _captured_operands(cfg, camera: bool, n_scans: int = 20) -> dict:
-    """The operands K1, K2, K3 and K4 (fuse site) receive on the last scan
-    of a short ``GCConfig.tpu()`` replay of drifting-odometry scans, camera
-    off or on (copied on the way in): {attribute: (args, kwargs)}, plus
-    ``camera_rows`` (valid camera rows of that scan). The view of the first
-    chunk is empty (the pool is), so the scan is the second chunk's last."""
+def _capture(run) -> dict:
+    """The operands K1, K2, K3 and K4 (fuse site) receive at their last
+    call in ``run()`` (copied on the way in): {attribute: (args,
+    kwargs)}."""
     import importlib
 
     import torch
-    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
-    from fl_slam_tpu_torch.pipeline import init_state, replay
 
     seen = {}
 
@@ -1350,20 +1362,33 @@ def _captured_operands(cfg, camera: bool, n_scans: int = 20) -> dict:
             return fn(*args, **kw)
         return run
 
-    ds = simulate(cfg, n_scans=n_scans, seed=SEED + 1, with_camera=camera,
-                  odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
     mods = [(importlib.import_module(f"fl_slam_tpu_torch.{m}"), name)
             for m, name in _CAPTURED]
     originals = [getattr(m, name) for m, name in mods]
     for (m, name), fn in zip(mods, originals):
         setattr(m, name, hooked(fn, name))
     try:
-        replay(init_state(cfg, anchor0=ds.gt_poses[0],
-                          t0=float(ds.gt_stamps[0]) - 0.1),
-               to_scan_inputs(ds, cfg), cfg)
+        run()
     finally:
         for (m, name), fn in zip(mods, originals):
             setattr(m, name, fn)
+    return seen
+
+
+def _captured_operands(cfg, camera: bool, n_scans: int = 20) -> dict:
+    """``_capture`` on the last scan of a short ``GCConfig.tpu()`` replay
+    of drifting-odometry scans, camera off or on, plus ``camera_rows``
+    (valid camera rows of that scan). The view of the first chunk is empty
+    (the pool is), so the scan is the second chunk's last."""
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    ds = simulate(cfg, n_scans=n_scans, seed=SEED + 1, with_camera=camera,
+                  odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+    seen = _capture(lambda: replay(
+        init_state(cfg, anchor0=ds.gt_poses[0],
+                   t0=float(ds.gt_stamps[0]) - 0.1),
+        to_scan_inputs(ds, cfg), cfg))
     seen["camera_rows"] = int(ds.scans["cam_valid"][-1].sum())
     return seen
 
@@ -2048,27 +2073,16 @@ def render_path() -> dict:
     return counts
 
 
-def bag_path() -> dict:
-    """Phase 9: the evaluation entry point on a Kimera-layout fixture bag
-    (staging included), against a monolithic replay of the same staged
-    scans. Returns the launch counts of the streamed run."""
-    import os
-    import shutil
-    import tempfile
-
-    import numpy as np
+def _counted_run_eval(argv: list):
+    """``eval.run_eval.main(argv)`` with every launch count set to 0 just
+    before it and read just after, and the host syncs counted inside each
+    segment's replay and over the whole streamed loop (the staging, the
+    copies and the segment replays). Returns (run_eval's result, the
+    counts, the syncs of each segment's replay, the loop's own syncs)."""
     import torch
     from fl_slam_tpu_torch import pipeline
-    from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.eval import run_eval
-    from fl_slam_tpu_torch.io.kimera import (KIMERA_TOPICS,
-                                             make_kimera_fixture_bag)
-    from fl_slam_tpu_torch.io.rosbag import (StreamingStager,
-                                             load_scan_records,
-                                             smoothed_initial_anchor)
 
-    cfg = GCConfig.tpu()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_bag_")
     replay, replay_segments = pipeline.replay, pipeline.replay_segments
     seg_syncs, loop_syncs = [], []
 
@@ -2089,63 +2103,60 @@ def bag_path() -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
+    pipeline.replay = counted(replay, seg_syncs)
+    pipeline.replay_segments = streamed_loop
+    torch.cuda.synchronize()
+    _reset_counts()
     try:
-        t0 = time.perf_counter()
-        bag_dir, gt = make_kimera_fixture_bag(
-            os.path.join(tmp, "bag"), n_scans=N_BAG, seed=0, n_az=BAG_N_AZ)
-        bag_s = time.perf_counter() - t0
-        # Count the host syncs inside each segment's replay (the inner
-        # count) and over the whole streamed loop (the staging, the copies
-        # and the segment replays).
-        pipeline.replay = counted(replay, seg_syncs)
-        pipeline.replay_segments = streamed_loop
-        torch.cuda.synchronize()
-        _reset_counts()
-        try:
-            res = run_eval.main([
-                "--out", os.path.join(tmp, "eval"), "--bag", bag_dir,
-                "--profile", "kimera", "--gt", gt, "--scans", str(N_BAG),
-                "--seg-len", str(BAG_SEG), "--stream"])
-        except SystemExit as e:
-            raise AssertionError(f"bag path: run_eval exited {e.code}")
-        finally:
-            pipeline.replay, pipeline.replay_segments = (replay,
-                                                         replay_segments)
-        counts = _read_counts()
-        m = res["metrics"]
-        stager = res["stager"]
-
-        # One replay over the same staged scans: the same staging path in
-        # one segment, from the same anchor.
-        head = load_scan_records(bag_dir, KIMERA_TOPICS, cfg, max_scans=10)
-        (whole,) = list(StreamingStager(bag_dir, KIMERA_TOPICS, cfg, N_BAG,
-                                        max_scans=N_BAG))
-        state = pipeline.init_state(
-            cfg, anchor0=smoothed_initial_anchor(head, cfg),
-            t0=float(head["scan_start"][0]) - 0.1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, out = replay(state, whole, cfg)
-        mono = out.pose.cpu().numpy()
-        replay_s = time.perf_counter() - t0
+        res = run_eval.main(argv)
+    except SystemExit as e:
+        raise AssertionError(f"run_eval {argv} exited {e.code}")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        pipeline.replay, pipeline.replay_segments = replay, replay_segments
+    return res, _read_counts(), seg_syncs, loop_syncs[0]
 
-    R = cfg.view_refresh_every
-    want = {"predict_evidence": N_BAG, "scalar_tail": N_BAG,
-            "sinkhorn_piT": N_BAG, "moment_segment_sum[surfels]": N_BAG,
-            "moment_segment_sum[fuse]": N_BAG,
-            "conditional_slab_exchange_ff": N_BAG // R}
+
+def _whole_bag_replay(bag_dir: str, cfg, n: int, cam: dict):
+    """One replay over the bag's first ``n`` scans staged as one segment
+    by the same stager, from run_eval's anchor: (the staged scans, the
+    poses, the replay's seconds, ``init_state``'s keywords)."""
+    import torch
+    from fl_slam_tpu_torch.io.kimera import KIMERA_TOPICS
+    from fl_slam_tpu_torch.io.rosbag import (StreamingStager,
+                                             load_scan_records,
+                                             smoothed_initial_anchor)
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    head = load_scan_records(bag_dir, KIMERA_TOPICS, cfg, max_scans=10)
+    (whole,) = list(StreamingStager(bag_dir, KIMERA_TOPICS, cfg, n,
+                                    max_scans=n, **cam))
+    init = dict(anchor0=smoothed_initial_anchor(head, cfg),
+                t0=float(head["scan_start"][0]) - 0.1)
+    state = init_state(cfg, **init)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = replay(state, whole, cfg)
+    poses = out.pose.cpu().numpy()
+    return whole, poses, time.perf_counter() - t0, init
+
+
+def _bag_result(label: str, res: dict, counts: dict, seg_syncs: list,
+                loop_syncs: int, n: int, seg: int, want: dict) -> dict:
+    """The numbers of one streamed run_eval on a fixture bag, checked:
+    every audit gate, native staging, n scans in n / seg segments, 0 host
+    syncs inside each segment's replay, the launch counts ``want``, ATE
+    and RPE@1m inside ``BAG_BANDS``."""
+    m = res["metrics"]
+    stager = res["stager"]
     result = dict(
-        scans=m["scans"], segments=len(seg_syncs), seg_len=BAG_SEG,
-        raw_points_per_scan=16 * BAG_N_AZ, bag_build_s=bag_s,
+        scans=m["scans"], segments=len(seg_syncs), seg_len=seg,
         staging_backend=stager.audit["staging_backend"],
         staging_included_scans_per_s=m["scans_per_sec"],
-        replay_only_scans_per_s=N_BAG / replay_s,
         stage_s_per_segment=stager.stage_s,
         wait_s_per_segment=stager.wait_s,
+        staging_ms_per_scan=sum(stager.stage_s) / m["scans"] * 1e3,
         host_syncs_per_segment_replay=seg_syncs,
-        host_syncs_streamed_loop=loop_syncs[0] + sum(seg_syncs),
+        host_syncs_streamed_loop=loop_syncs + sum(seg_syncs),
         gates=res["gates"],
         ate_trans_m=m["ate"]["trans"]["rmse"],
         ate_rot_deg=m["ate"]["rot_deg"]["rmse"],
@@ -2153,35 +2164,233 @@ def bag_path() -> dict:
         rpe1_rot_deg=m["rpe_1m"]["rot_deg"]["rmse"],
         odom_ate_trans_m=m["ate_raw_odom"]["trans"]["rmse"],
         odom_ate_rot_deg=m["ate_raw_odom"]["rot_deg"]["rmse"],
-        launches={k: v for k, v in counts.items() if v},
-        streamed_equals_monolithic=bool(np.array_equal(res["poses"], mono)))
+        launches={k: v for k, v in counts.items() if v})
+    if not all(res["gates"].values()):
+        raise AssertionError(f"{label}: gates {res['gates']}")
+    if result["staging_backend"] != "native":
+        raise AssertionError(f"{label}: staging did not run natively")
+    if result["scans"] != n or len(seg_syncs) != n // seg:
+        raise AssertionError(f"{label}: {result['scans']} scans in "
+                             f"{len(seg_syncs)} segments")
+    if any(seg_syncs):
+        raise AssertionError(f"{label}: host syncs inside the segment "
+                             f"replays: {seg_syncs}")
+    for name, k in counts.items():
+        if k != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {k} times, "
+                                 f"expected {want.get(name, 0)}")
+    for key, limit in BAG_BANDS.items():
+        if not result[key] < limit:
+            raise AssertionError(f"{label}: {key} {result[key]} is not "
+                                 f"below {limit}")
+    return result
+
+
+def _bag_launches(cfg, n: int) -> dict:
+    return {"predict_evidence": n, "scalar_tail": n, "sinkhorn_piT": n,
+            "moment_segment_sum[surfels]": n, "moment_segment_sum[fuse]": n,
+            "conditional_slab_exchange_ff": n // cfg.view_refresh_every}
+
+
+def bag_path() -> dict:
+    """Phase 9: the evaluation entry point on a Kimera-layout fixture bag
+    (staging included), against a monolithic replay of the same staged
+    scans. Returns the phase's numbers (the streamed run's launch counts
+    among them)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.kimera import make_kimera_fixture_bag
+
+    cfg = GCConfig.tpu()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bag_")
+    try:
+        t0 = time.perf_counter()
+        bag_dir, gt = make_kimera_fixture_bag(
+            os.path.join(tmp, "bag"), n_scans=N_BAG, seed=0, n_az=BAG_N_AZ)
+        bag_s = time.perf_counter() - t0
+        res, counts, seg_syncs, loop_syncs = _counted_run_eval([
+            "--out", os.path.join(tmp, "eval"), "--bag", bag_dir,
+            "--profile", "kimera", "--gt", gt, "--scans", str(N_BAG),
+            "--seg-len", str(BAG_SEG), "--stream"])
+        _, mono, replay_s, _ = _whole_bag_replay(bag_dir, cfg, N_BAG, {})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = _bag_result("bag path", res, counts, seg_syncs, loop_syncs,
+                         N_BAG, BAG_SEG, _bag_launches(cfg, N_BAG))
+    result.update(raw_points_per_scan=16 * BAG_N_AZ, bag_build_s=bag_s,
+                  replay_only_scans_per_s=N_BAG / replay_s,
+                  streamed_equals_monolithic=bool(
+                      np.array_equal(res["poses"], mono)))
     print("bag: " + json.dumps(result), flush=True)
     print(f"bag: staging included {result['staging_included_scans_per_s']:.2f}"
           f" scans/s, replay only {result['replay_only_scans_per_s']:.2f} "
           f"scans/s; host syncs over the streamed loop "
           f"{result['host_syncs_streamed_loop']}", flush=True)
-    if not all(res["gates"].values()):
-        raise AssertionError(f"bag path: gates {res['gates']}")
-    if result["staging_backend"] != "native":
-        raise AssertionError("bag path: staging did not run natively")
-    if result["scans"] != N_BAG or len(seg_syncs) != N_BAG // BAG_SEG:
-        raise AssertionError(f"bag path: {result['scans']} scans in "
-                             f"{len(seg_syncs)} segments")
-    if any(seg_syncs):
-        raise AssertionError(f"bag path: host syncs inside the segment "
-                             f"replays: {seg_syncs}")
-    for name, n in counts.items():
-        if n != want.get(name, 0):
-            raise AssertionError(f"bag path: {name} launched {n} times, "
-                                 f"expected {want.get(name, 0)}")
-    for key, limit in BAG_BANDS.items():
-        if not result[key] < limit:
-            raise AssertionError(f"bag path: {key} {result[key]} is not "
-                                 f"below {limit}")
     if not result["streamed_equals_monolithic"]:
         raise AssertionError("bag path: the streamed poses differ from one "
                              "replay of the same staged scans")
-    return counts
+    return result
+
+
+def _belief_held(ops: dict, label: str) -> dict:
+    """K1 and K2 against their plain versions (f32, both on the card) on
+    captured operands, at phase 3's tolerances."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    cfg = GCConfig.tpu()
+    out = {}
+    for name, kern, plain in (
+            ("predict_evidence", bk.predict_evidence_packed,
+             bk.pe_math_plain),
+            ("scalar_tail", bk.scalar_tail_packed, bk.tail_math_plain)):
+        x = ops[name + "_packed"][0][1:]
+        got, want = kern(cfg, *x), plain(cfg, *x)
+        torch.cuda.synchronize()
+        rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  .item() for a, b in zip(got, want))
+        tol = BELIEF_TOL[name]["float32"]
+        if not (all(bool(torch.isfinite(a).all()) for a in got)
+                and rel <= tol):
+            raise AssertionError(f"{name} ({label}) mismatch: relative "
+                                 f"{rel} > {tol}")
+        out[name] = dict(max_rel_err=rel, tolerance=tol)
+    return out
+
+
+def camera_bag_path(bag_off: dict) -> dict:
+    """Phase 11: the camera from a bag. A 200-scan Kimera-layout fixture
+    written with the RGB-D camera; ``run_eval --profile kimera --calib``
+    streamed in segments of 100, live decode and extraction (run 1), then
+    again with the feature sidecar (run 2); K1-K4 held to their plain
+    versions on one camera-on bag scan's operands. ``bag_off``: phase 9's
+    numbers (camera off), printed beside. Returns the phase's numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch.camera.feature_cache import build_sidecar
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.kimera import (KIMERA_CAM_TOPICS,
+                                             make_kimera_fixture_bag)
+    from fl_slam_tpu_torch.io.rosbag import load_calibration
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    t_phase = time.perf_counter()
+    cfg = GCConfig.tpu()
+    want = _bag_launches(cfg, N_CAM_BAG)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cam_bag_")
+    try:
+        t0 = time.perf_counter()
+        bag_dir, gt = make_kimera_fixture_bag(
+            os.path.join(tmp, "bag"), n_scans=N_CAM_BAG, seed=0,
+            n_az=BAG_N_AZ, camera=True)
+        bag_s = time.perf_counter() - t0
+        calib_path = os.path.join(bag_dir, "fixture_calibration.json")
+        calib = load_calibration(calib_path)
+        cam = dict(cam_topics=KIMERA_CAM_TOPICS,
+                   intrinsics=calib["intrinsics"],
+                   T_base_cam=calib["T_base_cam"])
+
+        def run(tag):
+            return _counted_run_eval([
+                "--out", os.path.join(tmp, tag), "--bag", bag_dir,
+                "--profile", "kimera", "--calib", calib_path, "--gt", gt,
+                "--scans", str(N_CAM_BAG), "--seg-len", str(CAM_BAG_SEG),
+                "--stream"])
+
+        live = run("live")
+        whole, mono, replay_s, init = _whole_bag_replay(
+            bag_dir, cfg, N_CAM_BAG, cam)
+        valid = whole.cam_valid.sum(dim=1).cpu().numpy()
+        # the operands of scan 20, the second chunk's last (the first
+        # chunk's view is empty)
+        ops = _capture(lambda: replay(init_state(cfg, **init),
+                                      _slice(whole, N_RERUN), cfg))
+        ops["camera_rows"] = int(valid[N_RERUN - 1])
+        held = _camera_checks(ops, cfg.n_feat)
+        held.update(_belief_held(ops, "camera-on bag scan"))
+        del whole, ops
+        t0 = time.perf_counter()
+        sidecar = build_sidecar(bag_dir, KIMERA_CAM_TOPICS,
+                                calib["intrinsics"], cfg.n_feat)
+        sidecar_s = time.perf_counter() - t0
+        cached = run("sidecar")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = {}
+    for tag, (res, counts, seg_syncs, loop_syncs) in (("live", live),
+                                                       ("sidecar", cached)):
+        runs[tag] = _bag_result(f"camera bag path ({tag})", res, counts,
+                                seg_syncs, loop_syncs, N_CAM_BAG,
+                                CAM_BAG_SEG, want)
+        audit = res["audit"]
+        index = res["stager"].cam_index
+        runs[tag].update(camera_scans=audit["camera_scans"],
+                         camera_pairs=audit["camera_pairs"],
+                         feature_cache=audit.get("camera_feature_cache"),
+                         held_payload_bytes=sum(
+                             len(m.data) for m in index.rgb_msgs
+                             + index.depth_msgs))
+    gap = np.abs(live[0]["poses"] - cached[0]["poses"]).max(axis=0)
+    result = dict(
+        config="GCConfig.tpu()", scans=N_CAM_BAG, seg_len=CAM_BAG_SEG,
+        camera_frame=[calib["intrinsics"].width,
+                      calib["intrinsics"].height],
+        bag_build_s=bag_s, sidecar_build_s=sidecar_s,
+        valid_camera_rows_per_scan={"min": int(valid.min()),
+                                    "mean": float(valid.mean()),
+                                    "of": cfg.n_feat},
+        live=runs["live"], sidecar=runs["sidecar"],
+        live_vs_sidecar_max_pose_gap=gap.tolist(),
+        replay_only_scans_per_s=N_CAM_BAG / replay_s,
+        streamed_equals_monolithic=bool(np.array_equal(live[0]["poses"],
+                                                       mono)),
+        kernels_on_bag_operands=held,
+        launches_per_scan={k: v / N_CAM_BAG
+                           for k, v in runs["live"]["launches"].items()},
+        camera_off_staging_included_scans_per_s=bag_off[
+            "staging_included_scans_per_s"],
+        camera_off_staging_ms_per_scan=bag_off["staging_ms_per_scan"],
+        phase_s=time.perf_counter() - t_phase)
+    print("camera bag: " + json.dumps(result), flush=True)
+    print(f"camera bag: staging {runs['live']['staging_ms_per_scan']:.1f} "
+          f"ms a scan live, {runs['sidecar']['staging_ms_per_scan']:.1f} "
+          f"with the sidecar (camera off "
+          f"{bag_off['staging_ms_per_scan']:.1f}); staging included "
+          f"{runs['live']['staging_included_scans_per_s']:.2f} / "
+          f"{runs['sidecar']['staging_included_scans_per_s']:.2f} scans/s "
+          f"(camera off {bag_off['staging_included_scans_per_s']:.2f}); "
+          f"valid camera rows a scan min {int(valid.min())} mean "
+          f"{valid.mean():.1f}; ATE live {runs['live']['ate_trans_m']:.4f} "
+          f"m / {runs['live']['ate_rot_deg']:.3f} deg, sidecar "
+          f"{runs['sidecar']['ate_trans_m']:.4f} m / "
+          f"{runs['sidecar']['ate_rot_deg']:.3f} deg; pose gap live vs "
+          f"sidecar {gap.max():.3g}; camera payloads held "
+          f"{runs['live']['held_payload_bytes'] / N_CAM_BAG / 1e3:.1f} kB a "
+          f"scan; phase {result['phase_s']:.1f} s", flush=True)
+    for tag, r in runs.items():
+        if r["camera_scans"] != N_CAM_BAG:
+            raise AssertionError(f"camera bag path ({tag}): camera rows in "
+                                 f"{r['camera_scans']} of {N_CAM_BAG} scans")
+    if runs["sidecar"]["feature_cache"] != sidecar or \
+            runs["live"]["feature_cache"] is not None:
+        raise AssertionError(f"camera bag path: feature cache "
+                             f"{runs['live']['feature_cache']} / "
+                             f"{runs['sidecar']['feature_cache']}")
+    if not valid.min() > 0:
+        raise AssertionError(f"camera bag path: a scan with no valid camera "
+                             f"row (min {valid.min()})")
+    if not result["streamed_equals_monolithic"]:
+        raise AssertionError("camera bag path: the streamed poses differ "
+                             "from one replay of the same staged scans")
+    return result
 
 
 def camera_path() -> dict:
@@ -2360,8 +2569,9 @@ def main() -> int:
     scounts = select_path(main_run, ds, scans)
     del ds, scans
     rcounts = render_path()
-    bag_path()
+    bag_off = bag_path()
     camera_path()
+    camera_bag_path(bag_off)
     for row in rows:
         key = row.pop("launch_key")
         # One-instance kernels count in the GCConfig.tpu() replay of phase

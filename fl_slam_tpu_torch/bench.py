@@ -17,6 +17,10 @@ Parts:
     reads as e2e wall against their sum; and per segment, the staging time
     in the thread, the time the replay loop waited for it (the staging the
     overlap did not hide) and the replay's own time;
+  - ``e2e_camera``: the same, on the same 1,000 fixture scans written with
+    ``camera=True`` (two 424x240 RGB-D frames a scan) and staged with the
+    RGB-D camera, every frame decoded and its features extracted live in
+    the staging thread (no feature sidecar);
   - with ``--instances B``: the batched replay of B instances of the replay
     part's scans (``parallel.replicas.batched_replay``), aggregate
     scan-instances/s beside the single-instance point.
@@ -87,22 +91,35 @@ def _replay_part(cfg, ds, dev, reps: int) -> dict:
             "ms_per_scan": 1e3 * best / T, "scans_per_sec": T / best}
 
 
-def _e2e_part(cfg, dev, n_scans: int, seg_len: int, n_az: int) -> dict:
-    from fl_slam_tpu_torch.io.kimera import (KIMERA_TOPICS,
+def _e2e_part(cfg, dev, n_scans: int, seg_len: int, n_az: int,
+              camera: bool = False) -> dict:
+    import os
+
+    from fl_slam_tpu_torch.io.kimera import (KIMERA_CAM_TOPICS,
+                                             KIMERA_TOPICS,
                                              make_kimera_fixture_bag)
     from fl_slam_tpu_torch.io.rosbag import (TIME_REBASE_MARGIN_S,
-                                             StreamingStager)
+                                             StreamingStager,
+                                             load_calibration)
     from fl_slam_tpu_torch.pipeline import init_state, replay_segments
 
     tmpd = tempfile.mkdtemp(prefix="gc_bench_bag_")
     try:
         t = time.perf_counter()
-        make_kimera_fixture_bag(tmpd, n_scans=n_scans, seed=0, n_az=n_az)
+        make_kimera_fixture_bag(tmpd, n_scans=n_scans, seed=0, n_az=n_az,
+                                camera=camera)
         bag_build_s = time.perf_counter() - t
+        cam = {}
+        if camera:
+            calib = load_calibration(
+                os.path.join(tmpd, "fixture_calibration.json"))
+            cam = dict(cam_topics=KIMERA_CAM_TOPICS,
+                       intrinsics=calib["intrinsics"],
+                       T_base_cam=calib["T_base_cam"])
 
         def stager():
             return StreamingStager(tmpd, KIMERA_TOPICS, cfg, seg_len,
-                                   max_scans=n_scans, device=dev)
+                                   max_scans=n_scans, device=dev, **cam)
 
         def fresh():
             # staged times are rebased so that the first scan lands at the
@@ -137,7 +154,12 @@ def _e2e_part(cfg, dev, n_scans: int, seg_len: int, n_az: int) -> dict:
         shutil.rmtree(tmpd, ignore_errors=True)
     if not np.isfinite(poses).all():
         raise AssertionError("end-to-end bench: non-finite poses")
+    if camera and st.audit["camera_scans"] != st.n_scans:
+        raise AssertionError(f"end-to-end bench: {st.audit['camera_scans']}"
+                             f" of {st.n_scans} scans got camera rows")
     loop = [b - a for a, b in zip([0.0] + ends[:-1], ends)]
+    extra = ({"camera_scans": st.audit["camera_scans"],
+              "camera_pairs": st.audit["camera_pairs"]} if camera else {})
     return {
         "scans": int(st.n_scans), "seg_len": seg_len,
         "raw_points_per_scan": 16 * n_az, "wall_s": wall,
@@ -150,7 +172,7 @@ def _e2e_part(cfg, dev, n_scans: int, seg_len: int, n_az: int) -> dict:
         "replay_s_per_segment": [lp - w for lp, w in zip(loop, st.wait_s)],
         "staging_hidden_share": 1.0 - sum(st.wait_s) / sum(st.stage_s),
         "bag_build_s": bag_build_s,
-        "staging_backend": st.audit["staging_backend"],
+        "staging_backend": st.audit["staging_backend"], **extra,
     }
 
 
@@ -209,7 +231,9 @@ def main(argv=None) -> dict:
     ds = simulate(cfg, n_scans=n["scans"], seed=0)
     replay_r = _replay_part(cfg, ds, dev, n["reps"])
     e2e = _e2e_part(cfg, dev, n["e2e_scans"], n["seg_len"], n["n_az"])
-    extra = {"replay": replay_r, "end_to_end": e2e}
+    e2e_camera = _e2e_part(cfg, dev, n["e2e_scans"], n["seg_len"], n["n_az"],
+                           camera=True)
+    extra = {"replay": replay_r, "end_to_end": e2e, "e2e_camera": e2e_camera}
     if args.instances:
         extra["batched"] = _batched_part(cfg, ds, dev, args.instances,
                                          n["reps"], replay_r)

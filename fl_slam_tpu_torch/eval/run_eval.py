@@ -1,6 +1,5 @@
 """The evaluation entry point of the port (twin of ``tools/run_eval.py``,
-without the camera and without the HTML / matplotlib dashboards and map
-renders).
+without the HTML / matplotlib dashboards and map renders).
 
 Stages: stage data (synthetic, or a ROS 2 bag) -> replay (one shot, or in
 segments with ``--seg-len``; ``--stream`` stages each segment of the bag
@@ -10,9 +9,15 @@ time-base and overlap gates -> ATE / RPE -> artifacts (``trajectory.tum``,
 ``splat_export.npz``, ``runtime_manifest.json``).
 
   python -m fl_slam_tpu_torch.eval.run_eval --out runs/eval1 [--scans 100]
-      [--seed 3] [--drift] [--cpu] [--small]
+      [--seed 3] [--drift] [--camera] [--cpu] [--small]
   python -m fl_slam_tpu_torch.eval.run_eval --out runs/k --profile kimera
       --bag <bag dir> --gt <gt.tum> [--seg-len 200 --stream] [--calib c.json]
+
+The camera: ``--camera`` renders synthetic RGB-D frames; on a bag,
+``--rgb`` and ``--depth`` name its camera topics and ``--calib`` gives the
+intrinsics and ``T_base_cam`` (with ``--profile kimera``, ``--calib`` alone
+turns on the documented camera topics). A camera asked for without
+intrinsics, or that reaches no scan, fails with code 2.
 
 It runs on the CUDA device (and raises without one) unless ``--cpu`` is
 given; on the CPU it uses the small test budgets, as the reference does. A
@@ -35,8 +40,6 @@ SMALL_SLICE = dict(k_hyp=1, view_page=64, view_refresh_every=2,
                    merge_at_chunk=True, approx_topk=True, select_bf16=True,
                    surfel_moment_kernel=True, fuse_moment_kernel=True,
                    belief_kernel=False, camera_fuse_geom_scale=0.0)
-_CAMERA = ("the camera (--camera / --rgb / --depth) comes with the port's "
-           "camera bag slice")
 
 
 def small_config(**overrides):
@@ -53,7 +56,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--drift", action="store_true",
                     help="drifting wheel odometry (the SLAM stress case)")
-    ap.add_argument("--camera", action="store_true")
+    ap.add_argument("--camera", action="store_true",
+                    help="synthetic RGB-D frames (synthetic runs only)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     ap.add_argument("--small", action="store_true",
@@ -62,10 +66,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lidar", default="/gc/sensors/lidar_points")
     ap.add_argument("--imu", default="/imu")
     ap.add_argument("--odom", default="/odom")
-    ap.add_argument("--rgb", default=None)
-    ap.add_argument("--depth", default=None)
+    ap.add_argument("--rgb", default=None,
+                    help="CompressedImage topic (turns the camera on)")
+    ap.add_argument("--depth", default=None, help="raw depth Image topic")
     ap.add_argument("--calib", default=None,
-                    help="calibration JSON; its T_base_lidar is applied")
+                    help="calibration JSON: T_base_lidar / T_base_cam / "
+                    "intrinsics (io.rosbag.load_calibration)")
     ap.add_argument("--gt", default=None, help="TUM ground-truth file")
     ap.add_argument("--seg-len", type=int, default=0,
                     help="replay in segments of N scans (0 = one shot)")
@@ -96,7 +102,9 @@ def _print_wiring_summary(audit: dict) -> None:
     print(f"[wiring] in-stream drops/flags: {drops}; staged "
           f"{audit.get('staged_bytes', 0) / 1e6:.1f} MB, "
           f"{audit.get('n_scans', 0)} scans, backend "
-          f"{audit.get('staging_backend')}")
+          f"{audit.get('staging_backend')}"
+          + (f"; camera pairs {audit['camera_pairs']}, camera scans "
+             f"{audit['camera_scans']}" if "camera_pairs" in audit else ""))
 
 
 def _fail(msg: str):
@@ -109,11 +117,15 @@ def main(argv=None) -> dict:
     "certs", "audit", "stager"} (``stager``: the ``StreamingStager`` of a
     streamed run, else None). Raises SystemExit(2) on a failed gate."""
     args = _parser().parse_args(argv)
-    if args.camera or args.rgb or args.depth:
-        raise NotImplementedError(f"fl_slam_tpu_torch: {_CAMERA}")
     if args.profile == "kimera":
-        from fl_slam_tpu_torch.io.kimera import KIMERA_TOPICS
+        from fl_slam_tpu_torch.io.kimera import (KIMERA_CAM_TOPICS,
+                                                 KIMERA_TOPICS)
         args.lidar, args.imu, args.odom = KIMERA_TOPICS
+        if args.rgb is None and args.depth is None and args.calib:
+            args.rgb, args.depth = KIMERA_CAM_TOPICS
+    if args.camera and args.bag:
+        _fail("--camera renders synthetic frames; a bag's camera needs "
+              "--rgb/--depth (or --profile kimera) and --calib")
 
     import torch
 
@@ -145,11 +157,19 @@ def main(argv=None) -> dict:
     stager = host_recs = scans = None
     audit = None
     t_stage = time.perf_counter()
+    cam = None
     if args.bag:
         from fl_slam_tpu_torch.io import rosbag
         calib = rosbag.load_calibration(args.calib) if args.calib else {}
         topics = rosbag.BagTopics(args.lidar, args.imu, args.odom)
         T_bl = calib.get("T_base_lidar")
+        if args.rgb or args.depth:
+            if not (args.rgb and args.depth) or "intrinsics" not in calib:
+                _fail("--rgb/--depth need both topics and --calib with "
+                      "intrinsics")
+            cam = rosbag.CameraTopics(rgb=args.rgb, depth=args.depth)
+        cam_kw = dict(cam_topics=cam, intrinsics=calib.get("intrinsics"),
+                      T_base_cam=calib.get("T_base_cam"))
         if args.stream and args.seg_len:
             # a 10-scan head staged up front (initial anchor, budget-shape
             # probe); the rest stages segment by segment inside the replay
@@ -157,11 +177,12 @@ def main(argv=None) -> dict:
                                             max_scans=10, T_base_lidar=T_bl)
             stager = rosbag.StreamingStager(args.bag, topics, cfg,
                                             args.seg_len, T_base_lidar=T_bl,
-                                            max_scans=args.scans, device=dev)
+                                            max_scans=args.scans, device=dev,
+                                            **cam_kw)
         else:
             recs = rosbag.load_scan_records(args.bag, topics, cfg,
                                             max_scans=args.scans,
-                                            T_base_lidar=T_bl)
+                                            T_base_lidar=T_bl, **cam_kw)
             if args.seg_len:
                 host_recs = recs
             else:
@@ -176,7 +197,8 @@ def main(argv=None) -> dict:
         from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
         kw = (dict(odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
               if args.drift else {})
-        ds = simulate(cfg, n_scans=args.scans, seed=args.seed, **kw)
+        ds = simulate(cfg, n_scans=args.scans, seed=args.seed,
+                      with_camera=args.camera, **kw)
         if args.seg_len:
             host_recs = ds.scans
         else:
@@ -228,6 +250,8 @@ def main(argv=None) -> dict:
         with open(os.path.join(args.out, "wiring_audit.json"), "w") as fh:
             json.dump(audit, fh, indent=2)
         _print_wiring_summary(audit)
+        if cam is not None and audit.get("camera_scans", 0) == 0:
+            _fail("camera requested but no scan got camera features")
 
     # ---- audit gates --------------------------------------------------------
     schema = C.tape_schema(certs)

@@ -1,5 +1,5 @@
 """Kimera-Multi ``acl_jackal`` workload facts and the fixture bag (port of
-``fl_slam_tpu/io/kimera.py`` without the camera).
+``fl_slam_tpu/io/kimera.py``).
 
 The reference's one supported dataset is the Kimera bag
 ``10_14_acl_jackal-005``. Its documented wire-level facts are data here:
@@ -8,14 +8,14 @@ IMU / odometry covariances, the VLP-16 beam table and the TUM ground-truth
 format. ``make_kimera_fixture_bag`` writes a ROS 2 sqlite3 bag in exactly
 that layout, from a seed, so the staging and the replay run on the real
 bag's shape without a download. ``eval.run_eval --profile kimera`` takes
-the topic names from here.
-
-The fixture's camera topics (``camera=True``) come with the camera bag
-slice.
+the topic names from here. ``camera=True`` adds the rig's RGB-D camera:
+JPEG ``CompressedImage`` and 16UC1 depth topics and a calibration JSON.
 """
 
 from __future__ import annotations
 
+import io
+import json
 import os
 import sqlite3
 
@@ -224,6 +224,56 @@ def vlp16_sweep(rng, n_az: int = 360, room: float = 8.0, *,
     return xyz, intens, ring, tr
 
 
+# Camera->base extrinsic of the fixture rig: optical frame (z forward, x
+# right, y down) mounted forward on the base (x forward, y left, z up).
+FIXTURE_T_BASE_CAM = np.array([
+    [0.0, 0.0, 1.0, 0.10],
+    [-1.0, 0.0, 0.0, 0.00],
+    [0.0, -1.0, 0.0, 0.30],
+    [0.0, 0.0, 0.0, 1.0]])
+FIXTURE_CAM_HZ = 15.0
+
+
+def render_fixture_rgbd(p_wb, yaw, intr, rng, room: float = 14.0,
+                        room_center=(0.0, 8.0)):
+    """Ray-cast RGB-D frame of the fixture camera against the square room
+    ``vlp16_sweep`` samples: depth is the ray's wall intersection (16-bit
+    mm, 0 where no wall lies ahead), RGB a world-space checkerboard on the
+    hit points (corners for the FAST detector). Draws the depth noise, then
+    the shade noise, from ``rng``."""
+    H, W = intr.height, intr.width
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    d_c = np.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy,
+                    np.ones_like(u, dtype=np.float64)], axis=-1)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R_wb = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    R_wc = R_wb @ FIXTURE_T_BASE_CAM[:3, :3]
+    p_wc = R_wb @ FIXTURE_T_BASE_CAM[:3, 3] + np.asarray(p_wb)
+    d_w = d_c @ R_wc.T                                  # (H, W, 3)
+    t_best = np.full((H, W), np.inf)
+    for axis, sign in ((0, 1), (0, -1), (1, 1), (1, -1)):
+        denom = d_w[..., axis]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (room_center[axis] + sign * room - p_wc[axis]) / denom
+        t = np.where((t > 0.05) & np.isfinite(t), t, np.inf)
+        t_best = np.minimum(t_best, t)
+    hit = p_wc[None, None, :] + t_best[..., None] * d_w
+    valid = np.isfinite(t_best) & (t_best < 30.0)
+    # depth along the optical axis is t (d_c has z = 1)
+    depth_m = np.where(valid, t_best, 0.0)
+    depth_m = np.where(valid,
+                       depth_m + rng.normal(0, 0.003, depth_m.shape), 0.0)
+    depth_mm = np.clip(depth_m * 1000.0, 0, 65535).astype(np.uint16)
+    cells = np.floor_divide(np.where(valid[..., None], hit, 0.0),
+                            0.4).astype(np.int64).sum(axis=-1)
+    shade = np.where(cells % 2 == 0, 200.0, 60.0)
+    shade = np.where(valid, shade, 20.0)
+    shade = shade + rng.normal(0, 4.0, shade.shape)
+    rgb = np.clip(np.stack([shade, shade * 0.95, shade * 0.9], axis=-1),
+                  0, 255).astype(np.uint8)
+    return rgb, depth_mm
+
+
 def make_kimera_fixture_bag(out_dir: str, n_scans: int = 5, seed: int = 0,
                             t0: float = 1634219540.0, *,
                             camera: bool = False, cam_wh=(424, 240),
@@ -232,16 +282,17 @@ def make_kimera_fixture_bag(out_dir: str, n_scans: int = 5, seed: int = 0,
     """Synthesize a ROS 2 sqlite3 bag in the documented Kimera layout:
     /acl_jackal/* topics, VLP-16 field layout, documented covariances,
     10 Hz lidar / 200 Hz IMU / 50 Hz odom, plus the TUM ground-truth file;
-    the same messages and file as the reference's for the same arguments.
-    ``camera=True`` (the camera topics) raises until the camera bag slice.
-    ``n_az``: azimuth steps per sweep (default 360 -> 5,760
+    the same messages and files as the reference's for the same arguments
+    (the JPEG bytes as far as PIL's libjpeg is the same). ``camera=True``
+    adds the camera's wire path: JPEG (quality 90) ``CompressedImage`` on
+    ``KIMERA_CAM_TOPICS.rgb`` and 16UC1-mm ``Image`` on
+    ``KIMERA_CAM_TOPICS.depth`` at ~15 Hz (two frames a scan, each depth
+    stamped 8 ms after its RGB frame: inside the 50 ms pairing window, not
+    equal), and ``fixture_calibration.json`` with the intrinsics and
+    ``T_base_cam``. ``n_az``: azimuth steps per sweep (default 360 -> 5,760
     pts/scan; the real VLP-16 at 10 Hz emits ~1,800 -> 28,800 — use 1800
     for staging-realistic end-to-end benchmarks). Returns
     (bag_dir, gt_path)."""
-    if camera:
-        raise NotImplementedError(
-            "fl_slam_tpu_torch: the fixture's camera topics come with the "
-            "camera bag slice")
     rng = np.random.default_rng(seed)
     os.makedirs(out_dir, exist_ok=True)
     db = os.path.join(out_dir, "kimera_fixture_0.db3")
@@ -256,6 +307,19 @@ def make_kimera_fixture_bag(out_dir: str, n_scans: int = 5, seed: int = 0,
         (2, KIMERA_TOPICS.imu, "sensor_msgs/msg/Imu", "cdr", ""),
         (3, KIMERA_TOPICS.odom, "nav_msgs/msg/Odometry", "cdr", ""),
     ])
+    if camera:
+        con.executemany("INSERT INTO topics VALUES (?,?,?,?,?)", [
+            (4, KIMERA_CAM_TOPICS.rgb,
+             "sensor_msgs/msg/CompressedImage", "cdr", ""),
+            (5, KIMERA_CAM_TOPICS.depth, "sensor_msgs/msg/Image", "cdr", ""),
+        ])
+        from PIL import Image
+
+        from fl_slam_tpu_torch.camera.features import PinholeIntrinsics
+        w, h = cam_wh
+        intr = PinholeIntrinsics(fx=0.9 * w, fy=0.9 * w, cx=w / 2.0,
+                                 cy=h / 2.0, width=w, height=h)
+        n_cam = max(1, int(round(FIXTURE_CAM_HZ / LIDAR_HZ)))
     # ground-truth trajectory: slow forward arc (planar, Jackal-like) — a
     # radius-8 circle centered on (0, 8); the room must CONTAIN it (walls
     # at x = +-14, y = 8 +- 14), and every sweep is rendered from the pose
@@ -315,12 +379,34 @@ def make_kimera_fixture_bag(out_dir: str, n_scans: int = 5, seed: int = 0,
                          encode_kimera_odom(tod, p, q, [vel, 0, 0],
                                             [0, 0, yaw_rate])))
 
+        for j in range(n_cam if camera else 0):
+            tc = ts + j / FIXTURE_CAM_HZ
+            pc, yawc = pose_at(tc)
+            rgb, depth_mm = render_fixture_rgbd(pc, yawc, intr, rng)
+            buf = io.BytesIO()
+            Image.fromarray(rgb).save(buf, format="JPEG", quality=90)
+            mid += 1
+            con.execute("INSERT INTO messages VALUES (?,?,?,?)",
+                        (mid, 4, int(tc * 1e9),
+                         cdr.encode_compressed_image(tc, buf.getvalue())))
+            td = tc + 0.008
+            mid += 1
+            con.execute("INSERT INTO messages VALUES (?,?,?,?)",
+                        (mid, 5, int(td * 1e9),
+                         cdr.encode_image(td, depth_mm, "16UC1")))
+
         p, yaw = pose_at(ts)
         q = np.array([0.0, 0.0, np.sin(yaw / 2), np.cos(yaw / 2)])
         gt_rows.append((ts, *p, *q))
 
     con.commit()
     con.close()
+
+    if camera:
+        with open(os.path.join(out_dir, "fixture_calibration.json"),
+                  "w") as fh:
+            json.dump({"T_base_cam": FIXTURE_T_BASE_CAM.tolist(),
+                       "intrinsics": intr._asdict()}, fh)
 
     gt_path = os.path.join(out_dir, "acl_jackal_gt.tum")
     with open(gt_path, "w") as fh:
@@ -331,7 +417,8 @@ def make_kimera_fixture_bag(out_dir: str, n_scans: int = 5, seed: int = 0,
 
 def main(argv=None) -> None:
     """Write a fixture bag: ``python -m fl_slam_tpu_torch.io.kimera OUT
-    [--scans N] [--seed S] [--n-az A]``; prints the bag and GT paths."""
+    [--scans N] [--seed S] [--n-az A] [--camera]``; prints the bag and GT
+    paths."""
     import argparse
     ap = argparse.ArgumentParser(prog="python -m fl_slam_tpu_torch.io.kimera")
     ap.add_argument("out")
@@ -339,9 +426,12 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-az", type=int, default=1800,
                     help="azimuth steps a sweep (1800: real VLP-16 density)")
+    ap.add_argument("--camera", action="store_true",
+                    help="add the RGB-D topics and fixture_calibration.json")
     args = ap.parse_args(argv)
     bag_dir, gt = make_kimera_fixture_bag(args.out, n_scans=args.scans,
-                                          seed=args.seed, n_az=args.n_az)
+                                          seed=args.seed, n_az=args.n_az,
+                                          camera=args.camera)
     print(bag_dir, gt)
 
 

@@ -1,5 +1,5 @@
 """ROS 2 bag (sqlite3 ``.db3``) reader and scan staging (port of
-``fl_slam_tpu/io/rosbag.py`` without the camera).
+``fl_slam_tpu/io/rosbag.py``).
 
 Staging reads the bag once, decodes CDR (the C++ batch decoders of
 ``io.native``; the Python decoders of ``io.cdr`` only with
@@ -15,8 +15,14 @@ there; the camera-off slice (zeros, colours 0.5) is built on the card, not
 uploaded. The reference's u16-quantized upload is not ported (and with it
 the stamp-range defect of its quantizer).
 
-The camera from a bag (``CameraTopics``, the RGB-D slice) comes with the
-camera bag slice: asking for it raises ``NotImplementedError``.
+The RGB-D camera (``CameraTopics`` with the calibration's intrinsics and
+``T_base_cam``): each RGB frame pairs with the nearest depth frame within
+50 ms, each scan with the nearest paired frame within 150 ms of its clock,
+on absolute stamps; the frame's features (decoded and extracted live, or
+rows of the bag's feature sidecar, ``camera.feature_cache``) are fused with
+the scan's lidar depth into the six ``cam_*`` fields, which ride the same
+packed upload. Scans with no frame in the window get the zero slice
+(colours 0.5). A frame whose size differs from the intrinsics raises.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.io import cdr, native
 
 TIME_REBASE_MARGIN_S = 16.0
-_CAMERA = ("fl_slam_tpu_torch: camera staging from a bag comes with the "
-           "camera bag slice")
+PAIR_WINDOW_S = 0.05        # an RGB frame's depth frame, at most this apart
+SCAN_WINDOW_S = 0.15        # a scan's RGB frame, at most this from its clock
 _STAGED = tuple(native.stage_shapes(1, 1))       # the 12 staged fields
 
 
@@ -70,17 +76,15 @@ class BagTopics(NamedTuple):
 
 
 class CameraTopics(NamedTuple):
-    """RGB-D topics (compressed colour + raw depth). Staging them comes with
-    the camera bag slice; passing them raises."""
+    """RGB-D topics: compressed colour and raw rectified depth."""
 
-    rgb: str
-    depth: str
+    rgb: str        # sensor_msgs/CompressedImage (JPEG / PNG payload)
+    depth: str      # sensor_msgs/Image (16UC1 mm or 32FC1 m)
 
 
 def load_calibration(path: str) -> dict:
     """Rig calibration JSON -> {T_base_lidar (4, 4), T_base_cam (4, 4),
-    intrinsics {fx, fy, cx, cy, width, height}}, each where present.
-    The intrinsics stay a plain dict until the camera bag slice."""
+    intrinsics ``PinholeIntrinsics``}, each where present."""
     with open(path) as fh:
         raw = json.load(fh)
     out = {}
@@ -95,11 +99,12 @@ def load_calibration(path: str) -> dict:
                                  " != 1 (not a rigid transform)")
             out[k] = T
     if "intrinsics" in raw:
+        from fl_slam_tpu_torch.camera.features import PinholeIntrinsics
         ii = raw["intrinsics"]
-        out["intrinsics"] = {**{k: float(ii[k]) for k in ("fx", "fy", "cx",
-                                                           "cy")},
-                             "width": int(ii["width"]),
-                             "height": int(ii["height"])}
+        out["intrinsics"] = PinholeIntrinsics(
+            fx=float(ii["fx"]), fy=float(ii["fy"]), cx=float(ii["cx"]),
+            cy=float(ii["cy"]), width=int(ii["width"]),
+            height=int(ii["height"]))
     return out
 
 
@@ -395,6 +400,159 @@ def _rebase_times(out: dict, origin: float) -> dict:
     return out
 
 
+# ---- the camera --------------------------------------------------------------
+
+def _camera_shapes(cfg: GCConfig) -> dict:
+    NF, B = cfg.n_feat, cfg.vmf_n_lobes
+    return {"cam_Lambdas": (NF, 3, 3), "cam_thetas": (NF, 3),
+            "cam_etas": (NF, B, 3), "cam_weights": (NF,), "cam_valid": (NF,),
+            "cam_colors": (NF, 3)}
+
+
+def _zero_camera_slice(T: int, cfg: GCConfig) -> dict:
+    """The camera slice of T scans without a frame: zeros, colours 0.5
+    (every consumer masks on ``cam_valid``)."""
+    return {k: np.full((T,) + shp, 0.5 if k == "cam_colors" else 0.0)
+            for k, shp in _camera_shapes(cfg).items()}
+
+
+def decode_rgb(payload: bytes) -> np.ndarray:
+    """Compressed RGB payload (JPEG / PNG) -> (H, W, 3) uint8, by PIL."""
+    import io
+
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(payload)).convert("RGB"))
+
+
+class _CameraIndex:
+    """The RGB-D messages of a bag, indexed for staging: every payload is
+    held (decoded lazily for the frames scans pick, the last 4 kept), so
+    segment-wise staging reuses one index. The feature sidecar beside the
+    bag is used where its stamps are the bag's."""
+
+    def __init__(self, reader: RosbagReader, cam: CameraTopics, intrinsics,
+                 T_base_cam, audit: dict):
+        from fl_slam_tpu_torch.camera.feature_cache import load_sidecar
+        self.intrinsics = intrinsics
+        self.T_base_cam = np.asarray(T_base_cam)
+        self.rgb_msgs = [cdr.decode_compressed_image(b)
+                         for _, b in reader.read_topic(cam.rgb)]
+        self.depth_msgs = [cdr.decode_image(b)
+                           for _, b in reader.read_topic(cam.depth)]
+        audit["consumed"][cam.rgb] = len(self.rgb_msgs)
+        audit["consumed"][cam.depth] = len(self.depth_msgs)
+        audit.setdefault("camera_pairs", 0)
+        audit.setdefault("camera_scans", 0)
+        self.empty = not self.rgb_msgs or not self.depth_msgs
+        if self.empty:
+            return
+        self.rgb_stamps = np.asarray([m.stamp for m in self.rgb_msgs])
+        depth_stamps = np.asarray([m.stamp for m in self.depth_msgs])
+        # each RGB frame pairs with the nearest depth frame
+        self.d_idx = np.argmin(
+            np.abs(depth_stamps[None, :] - self.rgb_stamps[:, None]), axis=1)
+        pair_ok = (np.abs(depth_stamps[self.d_idx] - self.rgb_stamps)
+                   <= PAIR_WINDOW_S)
+        self.pair_cand = np.flatnonzero(pair_ok)
+        audit["camera_pairs"] += int(pair_ok.sum())
+        self.feat_cache: dict = {}
+        self.sidecar = load_sidecar(reader.db_files[0], cam.rgb,
+                                    self.rgb_stamps)
+        if self.sidecar is not None:
+            audit["camera_feature_cache"] = self.sidecar["__path__"]
+
+    def _features_for(self, j: int, n_feat: int):
+        """FeatureArrays of RGB frame j, decoded and extracted live."""
+        from fl_slam_tpu_torch.camera.features import extract_features
+        if j not in self.feat_cache:
+            intr = self.intrinsics
+            rgb = decode_rgb(self.rgb_msgs[j].data)
+            depth = cdr.depth_image_to_m(self.depth_msgs[self.d_idx[j]])
+            if rgb.shape[0] != intr.height or rgb.shape[1] != intr.width:
+                raise ValueError(
+                    f"intrinsics {intr.width}x{intr.height} do not match "
+                    f"bag image {rgb.shape[1]}x{rgb.shape[0]}")
+            if len(self.feat_cache) >= 4:
+                self.feat_cache.pop(next(iter(self.feat_cache)))
+            self.feat_cache[j] = extract_features(rgb, depth, intr, n_feat)
+        return self.feat_cache[j]
+
+    def stage(self, scan_starts, scan_points, cfg: GCConfig,
+              audit: dict) -> dict:
+        """The camera slice (f64, leading T) of scans with absolute clocks
+        ``scan_starts`` and base-frame points ``scan_points`` (T, n, 3)."""
+        from fl_slam_tpu_torch.camera.depth_fusion import (
+            camera_slice_fields, camera_slice_fields_batch,
+            lidar_depth_evidence, splat_prep_fused, splat_prep_fused_batch)
+        T = len(scan_starts)
+        B, NF = cfg.vmf_n_lobes, cfg.n_feat
+        out = _zero_camera_slice(T, cfg)
+        if self.empty or self.pair_cand.size == 0:
+            return out
+        intr = self.intrinsics
+        R_bc = self.T_base_cam[:3, :3]
+        t_bc = self.T_base_cam[:3, 3]
+        # each scan picks the paired frame nearest its clock
+        cand = self.pair_cand
+        starts = np.asarray(scan_starts, dtype=np.float64)
+        cs = self.rgb_stamps[cand]
+        pos = np.searchsorted(cs, starts)
+        lo = np.clip(pos - 1, 0, cand.size - 1)
+        hi = np.clip(pos, 0, cand.size - 1)
+        j_all = cand[np.where(np.abs(cs[hi] - starts)
+                              < np.abs(cs[lo] - starts), hi, lo)]
+        sel = np.flatnonzero(np.abs(self.rgb_stamps[j_all] - starts)
+                             <= SCAN_WINDOW_S)
+        if self.sidecar is not None and int(self.sidecar["n_feat"]) != NF:
+            self.sidecar = None                 # another feature budget
+            audit.pop("camera_feature_cache", None)
+        if sel.size == 0:
+            return out
+        if self.sidecar is not None:
+            # the segment at once: the sidecar's rows gathered per scan, the
+            # fusion and the slice vectorized over scans; only the lidar
+            # depth evidence runs a scan at a time
+            dt = np.float32 if cfg.dtype == "float32" else np.float64
+            js = j_all[sel]
+            fb = {k: np.asarray(self.sidecar[k][js], dtype=dt)
+                  for k in ("uv", "depth_lambda", "depth_theta", "kappa_app",
+                            "normal_cam", "color", "weight")}
+            fb["valid"] = np.asarray(self.sidecar["valid"][js], dtype=bool)
+            lam_b = np.zeros((sel.size, NF), dtype=dt)
+            the_b = np.zeros((sel.size, NF), dtype=dt)
+            for s, i in enumerate(sel):
+                pts_cam = (scan_points[i] - t_bc) @ R_bc
+                lam_b[s], the_b[s], _ = lidar_depth_evidence(
+                    fb["uv"][s], fb["valid"][s], pts_cam, intr)
+            fields = camera_slice_fields_batch(
+                splat_prep_fused_batch(fb, intr, lam_b, the_b),
+                self.T_base_cam, B)
+        else:
+            per = [camera_slice_fields(
+                splat_prep_fused(self._features_for(int(j_all[i]), NF), intr,
+                                 (scan_points[i] - t_bc) @ R_bc),
+                self.T_base_cam, B) for i in sel]
+            fields = {k: np.stack([f[k] for f in per]) for k in per[0]}
+        for k, v in fields.items():
+            out["cam_" + k][sel] = v
+        audit["camera_scans"] += int(sel.size)
+        return out
+
+
+def _stage_camera(reader: RosbagReader, cam: CameraTopics, intrinsics,
+                  T_base_cam, scan_starts, scan_points, cfg: GCConfig,
+                  audit: dict) -> dict:
+    """One-shot camera staging: an index and one ``stage`` pass."""
+    idx = _CameraIndex(reader, cam, intrinsics, T_base_cam, audit)
+    return idx.stage(scan_starts, scan_points, cfg, audit)
+
+
+def _check_intrinsics(cam_topics, intrinsics) -> None:
+    if cam_topics is not None and intrinsics is None:
+        raise ValueError("camera staging needs intrinsics "
+                         "(load_calibration --calib JSON)")
+
+
 def load_scan_records(bag_dir: str, topics: BagTopics, cfg: GCConfig, *,
                       T_base_lidar: Optional[np.ndarray] = None,
                       cam_topics: Optional[CameraTopics] = None,
@@ -404,15 +562,15 @@ def load_scan_records(bag_dir: str, topics: BagTopics, cfg: GCConfig, *,
                       raw_point_cap: int = 60000,
                       native_staging: bool = True) -> dict:
     """Read a bag and stage every scan: a dict of stacked numpy records
-    (f64, leading T; the 12 staged fields, without the camera-off slice,
-    which ``to_scan_inputs`` builds on the device) with ``__audit__``.
+    (f64, leading T; the 12 staged fields, and with ``cam_topics`` the six
+    camera fields; without them ``to_scan_inputs`` builds the camera-off
+    slice on the device) with ``__audit__``.
 
     ``native_staging``: the C++ staging kernel (default) or the Python
     loop and decoders it is held to. ``T_base_lidar``: the 4x4
-    lidar->base extrinsic."""
-    if cam_topics is not None or intrinsics is not None \
-            or T_base_cam is not None:
-        raise NotImplementedError(_CAMERA)
+    lidar->base extrinsic. ``cam_topics`` needs ``intrinsics``;
+    ``T_base_cam`` defaults to the identity."""
+    _check_intrinsics(cam_topics, intrinsics)
     reader = RosbagReader(bag_dir)
     audit = _new_audit(reader)
     imu_blobs = [b for _, b in reader.read_topic(topics.imu)]
@@ -438,6 +596,12 @@ def load_scan_records(bag_dir: str, topics: BagTopics, cfg: GCConfig, *,
     T = int(out["scan_start"].shape[0])
     audit["n_scans"] = T
     audit["consumed"][topics.lidar] = T
+    if cam_topics is not None and T > 0:
+        # pairing on the absolute stamps, before the rebase
+        out.update(_stage_camera(
+            reader, cam_topics, intrinsics,
+            np.eye(4) if T_base_cam is None else T_base_cam,
+            out["scan_start"], out["points"], cfg, audit))
     audit["staged_bytes"] = int(sum(v.nbytes for v in out.values()))
     audit["dead_end_topics"] = sorted(
         set(audit["topics_in_bag"]) - set(audit["consumed"]))
@@ -503,19 +667,17 @@ def smoothed_initial_anchor(recs: dict, cfg: GCConfig, *, k: int = 10,
 def _camera_off(cfg: GCConfig, T: int, dtype, dev) -> dict:
     """The camera-off slice of T scans, built on ``dev``."""
     import torch
-    NF, B = cfg.n_feat, cfg.vmf_n_lobes
-    z = lambda *s: torch.zeros((T,) + s, dtype=dtype, device=dev)
-    return {"cam_Lambdas": z(NF, 3, 3), "cam_thetas": z(NF, 3),
-            "cam_etas": z(NF, B, 3), "cam_weights": z(NF),
-            "cam_valid": z(NF),
-            "cam_colors": torch.full((T, NF, 3), 0.5, dtype=dtype,
-                                     device=dev)}
+    return {k: torch.full((T,) + shp, 0.5 if k == "cam_colors" else 0.0,
+                          dtype=dtype, device=dev)
+            for k, shp in _camera_shapes(cfg).items()}
 
 
 class SegmentUploader:
     """Packs segments of ``T`` staged scans into pinned host buffers in
     ``cfg``'s dtype and sends each to ``device`` in one ``non_blocking``
-    copy, cut into the ``ScanInput`` fields there.
+    copy, cut into the ``ScanInput`` fields there. ``camera``: the six
+    camera fields ride in the same buffer; without it the camera-off slice
+    is built on the device.
 
     On a card it keeps two pinned buffers, used in turn, each allocated at
     its slot's first ``host`` call (a one-shot upload pins one), and one
@@ -526,15 +688,18 @@ class SegmentUploader:
     the CPU each ``host`` call gets a fresh buffer, which the uploaded
     fields then alias."""
 
-    def __init__(self, cfg: GCConfig, T: int, device):
+    def __init__(self, cfg: GCConfig, T: int, device, camera: bool = False):
         import torch
         from fl_slam_tpu_torch.runtime import resolve_device
-        self.cfg, self.T = cfg, int(T)
+        self.cfg, self.T, self.camera = cfg, int(T), bool(camera)
         self.dev = resolve_device(device)
         self.dtype = cfg.torch_dtype
         self.layout = []
+        shapes = dict(native.stage_shapes(cfg.n_points, cfg.imu_len))
+        if self.camera:
+            shapes.update(_camera_shapes(cfg))
         o = 0
-        for k, shp in native.stage_shapes(cfg.n_points, cfg.imu_len).items():
+        for k, shp in shapes.items():
             n = self.T * int(np.prod(shp, dtype=np.int64))
             self.layout.append((k, o, n, (self.T,) + shp))
             o += n
@@ -578,7 +743,8 @@ class SegmentUploader:
         else:
             dbuf = buf
         fields = {k: dbuf[o:o + n].view(shp) for k, o, n, shp in self.layout}
-        fields.update(_camera_off(self.cfg, self.T, self.dtype, self.dev))
+        if not self.camera:
+            fields.update(_camera_off(self.cfg, self.T, self.dtype, self.dev))
         return ScanInput(**fields)
 
 
@@ -593,9 +759,10 @@ def _fill(views: dict, recs: dict, lo: int, hi: int) -> None:
 
 def to_scan_inputs(recs: dict, cfg: GCConfig, device=None):
     """Staged records -> ``ScanInput`` on ``device`` (default: the CUDA
-    device; raises without one), in one packed copy."""
+    device; raises without one), in one packed copy (the camera fields
+    too, where the records have them)."""
     T = int(recs["scan_start"].shape[0])
-    up = SegmentUploader(cfg, T, device)
+    up = SegmentUploader(cfg, T, device, camera="cam_valid" in recs)
     views = up.host(0)
     if T:
         _fill(views, recs, 0, T)
@@ -612,7 +779,7 @@ def scan_input_segments(recs: dict, cfg: GCConfig, seg_len: int,
     T = int(recs["scan_start"].shape[0])
     if T == 0:
         return
-    up = SegmentUploader(cfg, seg_len, device)
+    up = SegmentUploader(cfg, seg_len, device, camera="cam_valid" in recs)
     for i, s in enumerate(range(0, T, seg_len)):
         _fill(up.host(i % 2), recs, s, min(s + seg_len, T))
         yield up.upload(i % 2)
@@ -630,7 +797,9 @@ class StreamingStager:
     ``scan_starts`` (absolute stamps, for GT alignment), ``odom_poses`` and
     the per-segment timings ``stage_s`` (staging in the thread) and
     ``wait_s`` (what the main thread waited for it: the staging the
-    overlap did not hide) are final once iteration ends.
+    overlap did not hide) are final once iteration ends. With
+    ``cam_topics`` the staging thread also stages each segment's camera
+    rows (``_CameraIndex``) into the same buffer.
     """
 
     def __init__(self, bag_dir: str, topics: BagTopics, cfg: GCConfig,
@@ -639,9 +808,7 @@ class StreamingStager:
                  T_base_cam=None, max_scans: Optional[int] = None,
                  raw_point_cap: int = 60000, native_staging: bool = True,
                  upload_quant: bool = False, device=None):
-        if cam_topics is not None or intrinsics is not None \
-                or T_base_cam is not None:
-            raise NotImplementedError(_CAMERA)
+        _check_intrinsics(cam_topics, intrinsics)
         if upload_quant:
             raise NotImplementedError(
                 "fl_slam_tpu_torch: the u16-quantized upload is not ported; "
@@ -667,6 +834,11 @@ class StreamingStager:
         if self.native:
             self.imu, self.odom = (_stamp_sorted(self.imu),
                                    _stamp_sorted(self.odom))
+        self.cam_index = None
+        if cam_topics is not None:
+            self.cam_index = _CameraIndex(
+                self.reader, cam_topics, intrinsics,
+                np.eye(4) if T_base_cam is None else T_base_cam, self.audit)
         self.n_scans = 0
         self.time_origin = None
         self.scan_starts: list = []
@@ -676,7 +848,9 @@ class StreamingStager:
 
     def _stage(self, blobs, prev_t, views) -> float:
         """Stage ``blobs`` into rows [0, len(blobs)) of ``views`` (rebased,
-        in the views' dtype); returns the last scan's absolute stamp."""
+        in the views' dtype; the camera rows from the scans' absolute clocks
+        and the points as staged); returns the last scan's absolute
+        stamp."""
         cfg = self.cfg
         S = len(blobs)
         kw = _native_kw(cfg, self.R_bl, self.t_bl, self.imu, self.odom,
@@ -711,6 +885,10 @@ class StreamingStager:
                 self.time_origin = float(start_abs[0]) - TIME_REBASE_MARGIN_S
                 self.audit["time_origin"] = self.time_origin
             _rebase_times(out, self.time_origin)
+        if self.cam_index is not None:
+            for k, v in self.cam_index.stage(start_abs, out["points"], cfg,
+                                             self.audit).items():
+                rows[k][:] = v
         for k in _STAGED:
             if out[k] is not rows[k]:
                 rows[k][:] = out[k]
@@ -748,7 +926,8 @@ class StreamingStager:
         return n
 
     def __iter__(self):
-        up = SegmentUploader(self.cfg, self.seg_len, self.dev)
+        up = SegmentUploader(self.cfg, self.seg_len, self.dev,
+                             camera=self.cam_index is not None)
         batches = self._blob_batches()
         state = {"prev_t": None}
         n_total = 0

@@ -1,8 +1,9 @@
 """The port's evaluation path against the JAX package's: the certificate
 audit layer, ``save_tum``, ``replay_segments``, the ``run_eval`` entry
-point on a Kimera-layout fixture bag (one shot and streamed), the accuracy
-tool and the bench, and the refusal of every new entry point to run without
-a card unless asked for the CPU.
+point on a Kimera-layout fixture bag (one shot and streamed, camera off and
+on) and on synthetic data with the camera, the accuracy tool and the bench,
+and the refusal of every new entry point to run without a card unless
+asked for the CPU.
 
 Config: ``eval.run_eval.small_config()`` (``GCConfig.small`` with the
 slice's switches, chunks of R = 2 scans, f64, the op-by-op belief branch)
@@ -73,6 +74,13 @@ def bag(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def cam_bag(tmp_path_factory):
+    return kimera.make_kimera_fixture_bag(
+        str(tmp_path_factory.mktemp("kimera_cam")), n_scans=6, seed=5,
+        camera=True)
+
+
+@pytest.fixture(scope="module")
 def jax_bag_replay(bag, cfgs, jax_run):
     """The JAX package's replay of its own staging of the fixture bag, from
     the smoothed initial anchor, as ``tools/run_eval.py`` starts it."""
@@ -132,6 +140,54 @@ def test_run_eval_matches_reference(port_runs, jax_bag_replay, bag):
         for key in ("trans", "rot_deg"):
             assert got[key]["rmse"] == pytest.approx(want[key]["rmse"],
                                                      rel=0, abs=1e-8)
+
+
+def test_run_eval_camera_bag_matches_reference(cam_bag, cfgs, jax_run,
+                                               tmp_path):
+    """``--profile kimera --calib`` turns the fixture's camera on: one shot
+    and streamed, every scan gets camera rows, and the poses are the JAX
+    package's replay of its own camera-on staging (f64, 1e-8)."""
+    bag_dir, gt = cam_bag
+    calib = os.path.join(bag_dir, "fixture_calibration.json")
+    args = ["--bag", bag_dir, "--profile", "kimera", "--calib", calib,
+            "--gt", gt, "--cpu", "--small"]
+    one = run_eval.main(["--out", str(tmp_path / "one")] + args)
+    streamed = run_eval.main(["--out", str(tmp_path / "streamed"),
+                              "--seg-len", str(SEG), "--stream"] + args)
+    jc = cfgs[1]
+    jcal = jrosbag.load_calibration(calib)
+    recs = jrosbag.load_scan_records(
+        bag_dir, jkimera.KIMERA_TOPICS, jc,
+        cam_topics=jrosbag.CameraTopics(*jkimera.KIMERA_CAM_TOPICS),
+        intrinsics=jcal["intrinsics"], T_base_cam=jcal["T_base_cam"])
+    state = jp.init_state(jc, anchor0=jnp.asarray(
+        jrosbag.smoothed_initial_anchor(recs, jc), jc.jdtype),
+        t0=float(recs["scan_start"][0]) - 0.1)
+    _, jposes, _ = jax_run(state, recs)
+    for r in (one, streamed):
+        assert all(r["gates"].values()), r["gates"]
+        assert r["audit"]["camera_scans"] == 6
+        assert r["audit"]["camera_pairs"] == 12
+        np.testing.assert_allclose(r["poses"], jposes, rtol=0, atol=1e-8)
+    audit = json.loads((tmp_path / "streamed" /
+                        "wiring_audit.json").read_text())
+    assert audit["dead_end_topics"] == []
+
+
+def test_run_eval_synthetic_camera_matches_reference(cfgs, jax_run,
+                                                     tmp_path):
+    r = run_eval.main(["--out", str(tmp_path / "c"), "--cpu", "--small",
+                       "--camera", "--scans", "4", "--drift"])
+    assert all(r["gates"].values()), r["gates"]
+    jc = cfgs[1]
+    ds = jsyn.simulate(jc, n_scans=4, seed=3, with_camera=True,
+                       odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+    assert ds.scans["cam_valid"].sum() > 0
+    state = jp.init_state(jc, anchor0=jnp.asarray(ds.gt_poses[0], jc.jdtype),
+                          t0=float(ds.gt_stamps[0]) - 0.1)
+    _, jposes, _ = jax_run(state, {k: np.asarray(v)
+                                   for k, v in ds.scans.items()})
+    np.testing.assert_allclose(r["poses"], jposes, rtol=0, atol=1e-8)
 
 
 def test_save_tum_writes_the_reference_bytes(tmp_path, rng):
@@ -227,10 +283,11 @@ def test_compute_budget_matches_reference(cfgs):
         assert got["largest_tensor_shape"][0] == atlas.fdata.shape[0]
 
 
-def test_every_upload_is_one_copy(cfgs, bag):
+def test_every_upload_is_one_copy(cfgs, bag, cam_bag):
     """``compute_budget``'s one host-to-device copy per replayed input:
     the synthetic and the staged uploads each cut every field they send out
-    of one buffer (the camera-off slice is built on the device)."""
+    of one buffer (the camera-off slice is built on the device; camera on,
+    the staged camera rows ride in the same buffer)."""
     tc = cfgs[0]
     assert certs.compute_budget(tc)["h2d_transfers_per_replay"] == 1
 
@@ -249,6 +306,18 @@ def test_every_upload_is_one_copy(cfgs, bag):
     staged = rosbag.to_scan_inputs(recs, tc, device="cpu")
     sent = [f for f in staged._fields if not f.startswith("cam_")]
     assert len(storages(staged, sent)) == 1
+    calib = rosbag.load_calibration(os.path.join(cam_bag[0],
+                                                 "fixture_calibration.json"))
+    cam = dict(cam_topics=kimera.KIMERA_CAM_TOPICS,
+               intrinsics=calib["intrinsics"], T_base_cam=calib["T_base_cam"])
+    recs = rosbag.load_scan_records(cam_bag[0], kimera.KIMERA_TOPICS, tc,
+                                    **cam)
+    for scans in [rosbag.to_scan_inputs(recs, tc, device="cpu"),
+                  *rosbag.scan_input_segments(recs, tc, SEG, device="cpu"),
+                  *rosbag.StreamingStager(cam_bag[0], kimera.KIMERA_TOPICS,
+                                          tc, SEG, device="cpu", **cam)]:
+        assert len(storages(scans, scans._fields)) == 1
+        assert scans.cam_valid.sum() > 0
 
 
 def _accuracy_rows_match_reference(rows, jc, jax_run, camera):
@@ -294,6 +363,10 @@ def test_bench_prints_one_json_line(capsys):
     assert r["extra"]["replay"]["scans"] == bench.CPU_SIZES["scans"]
     assert e2e["scans"] == 4 and e2e["staging_backend"] == "native"
     assert len(e2e["stage_s_per_segment"]) == 2
+    cam = r["extra"]["e2e_camera"]
+    assert cam["scans"] == cam["camera_scans"] == 4
+    assert set(e2e) < set(cam) and cam["x_realtime"] > 0
+    assert len(cam["wait_s_per_segment"]) == 2
     assert r["extra"]["batched"]["instances"] == 2
 
 
@@ -318,9 +391,13 @@ def test_entry_points_refuse_without_a_card(monkeypatch, bag, tmp_path,
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    for argv in (["--camera"], ["--rgb", "/c", "--depth", "/d"]):
-        with pytest.raises(NotImplementedError, match="camera bag slice"):
-            run_eval.main(["--out", str(tmp_path / "z"), "--cpu"] + argv)
+    # a bag's camera without intrinsics fails as the reference's does
+    for argv in (["--rgb", "/c"], ["--depth", "/d"],
+                 ["--rgb", "/c", "--depth", "/d"]):
+        with pytest.raises(SystemExit) as e:
+            run_eval.main(["--out", str(tmp_path / "z"), "--cpu", "--bag",
+                           bag[0]] + argv)
+        assert e.value.code == 2
 
 
 # ---- full size, under -m slow -------------------------------------------
@@ -432,21 +509,23 @@ def test_full_size_camera_f64_replay_matches_reference():
     assert gap.max() < 1e-6
 
 
-@pytest.mark.slow
-def test_full_size_fixture_gate_on_the_card_beside_reference(tmp_path):
-    """The 1,000-scan Kimera-layout fixture at real VLP-16 density: the
-    port's ``run_eval`` on the card (streamed, segments of 200) and the JAX
-    package on its platform (the exact pack, the same segments and anchor),
-    both inside ``test_fixture_full_metrics_gate``'s bands, and the port's
-    ATE and RPE@1m within ``FIXTURE_TOL`` of the JAX package's."""
+def _fixture_gate_beside_reference(tmp_path, camera: bool):
+    """The 1,000-scan Kimera-layout fixture at real VLP-16 density (with
+    ``camera``, its RGB-D topics too): the port's ``run_eval`` on the card
+    (streamed, segments of 200) and the JAX package on its platform (the
+    exact pack, the same segments and anchor), both inside
+    ``test_fixture_full_metrics_gate``'s bands, and the port's ATE and
+    RPE@1m within ``FIXTURE_TOL`` of the JAX package's."""
     if not torch.cuda.is_available():
         pytest.skip("the port's half needs a CUDA device")
     bag_dir, gt = kimera.make_kimera_fixture_bag(str(tmp_path / "bag"),
                                                  n_scans=1000, seed=0,
-                                                 n_az=1800)
+                                                 n_az=1800, camera=camera)
+    calib = os.path.join(bag_dir, "fixture_calibration.json")
     port = run_eval.main(["--out", str(tmp_path / "eval"), "--bag", bag_dir,
                           "--profile", "kimera", "--gt", gt, "--scans", "0",
-                          "--seg-len", "200", "--stream"])
+                          "--seg-len", "200", "--stream"]
+                         + (["--calib", calib] if camera else []))
     jc = JCfg.tpu()
     head = jrosbag.load_scan_records(bag_dir, jkimera.KIMERA_TOPICS, jc,
                                      max_scans=10)
@@ -454,16 +533,38 @@ def test_full_size_fixture_gate_on_the_card_beside_reference(tmp_path):
         jc, anchor0=jnp.asarray(jrosbag.smoothed_initial_anchor(head, jc),
                                 jc.jdtype),
         t0=float(head["scan_start"][0]) - 0.1)
+    cam = {}
+    if camera:
+        jcal = jrosbag.load_calibration(calib)
+        cam = dict(cam_topics=jrosbag.CameraTopics(
+            *jkimera.KIMERA_CAM_TOPICS), intrinsics=jcal["intrinsics"],
+            T_base_cam=jcal["T_base_cam"])
     st = jrosbag.StreamingStager(bag_dir, jkimera.KIMERA_TOPICS, jc, 200,
-                                 upload_quant=False)
+                                 upload_quant=False, **cam)
     _, out = jp.replay_segments(state, iter(st), jc)
+    if camera:
+        assert port["audit"]["camera_scans"] == st.audit["camera_scans"] \
+            == 1000
     want = _bag_metrics(np.asarray(out.pose)[:st.n_scans],
                         np.concatenate(st.scan_starts), gt)
     got = _bag_metrics(port["poses"], port["stamps"], gt)
-    print(f"fixture 1000: port (card) {got}; JAX ({jax.default_backend()})"
-          f" {want}")
+    print(f"fixture 1000{' camera on' if camera else ''}: port (card) "
+          f"{got}; JAX ({jax.default_backend()}) {want}")
     for m in (got, want):
         assert m["ate_trans_m"] < 0.6 and m["ate_rot_deg"] < 18.0, m
         assert m["rpe1_trans_m"] < 0.35 and m["rpe1_rot_deg"] < 2.5, m
     for k, tol in FIXTURE_TOL.items():
         assert got[k] == pytest.approx(want[k], rel=0, abs=tol), k
+
+
+@pytest.mark.slow
+def test_full_size_fixture_gate_on_the_card_beside_reference(tmp_path):
+    _fixture_gate_beside_reference(tmp_path, camera=False)
+
+
+@pytest.mark.slow
+def test_full_size_camera_fixture_gate_on_the_card_beside_reference(
+        tmp_path):
+    """The same fixture with the RGB-D camera (``--calib``): each package
+    stages its own camera rows, live."""
+    _fixture_gate_beside_reference(tmp_path, camera=True)

@@ -3,7 +3,9 @@ package's on the same bags: the CDR codecs and the fixture bag bit for bit,
 the port's own ``libgcio`` against its Python decoders, the staged records
 and the streamed segments bit for bit (f32 and f64, native and Python
 staging), the padded segments, the initial anchor, the GT time base, and
-the switches that refuse (camera, quantized upload, a broken compiler).
+the switches that refuse (camera topics without intrinsics, the quantized
+upload, a broken compiler). The camera from a bag is in
+``tests/test_torch_camera_bag.py``.
 
 Fixture bags: 12 scans at ``n_az=360`` (5,760 raw points a scan),
 ``GCConfig.small`` budgets; segments of 5, so the tail pads.
@@ -261,20 +263,25 @@ def test_anchor_and_time_alignment_match_reference(bag, rng):
 
 
 def test_camera_and_quantized_upload_refuse(bag, tmp_path):
+    """Camera topics without intrinsics raise the reference's ValueError
+    (both packages); the quantized upload is not ported."""
     cfg = TCfg.small()
     cam = rosbag.CameraTopics(rgb="/rgb", depth="/depth")
-    with pytest.raises(NotImplementedError, match="camera bag slice"):
+    with pytest.raises(ValueError, match="intrinsics"):
         rosbag.load_scan_records(bag[0], kimera.KIMERA_TOPICS, cfg,
                                  cam_topics=cam)
-    with pytest.raises(NotImplementedError, match="camera bag slice"):
+    with pytest.raises(ValueError, match="intrinsics"):
+        jrosbag.load_scan_records(bag[0], jkimera.KIMERA_TOPICS,
+                                  JCfg.small(), cam_topics=cam)
+    with pytest.raises(ValueError, match="intrinsics"):
         rosbag.StreamingStager(bag[0], kimera.KIMERA_TOPICS, cfg, SEG,
                                cam_topics=cam, device="cpu")
+    with pytest.raises(ValueError, match="intrinsics"):
+        jrosbag.StreamingStager(bag[0], jkimera.KIMERA_TOPICS, JCfg.small(),
+                                SEG, cam_topics=cam)
     with pytest.raises(NotImplementedError, match="quantized"):
         rosbag.StreamingStager(bag[0], kimera.KIMERA_TOPICS, cfg, SEG,
                                upload_quant=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="camera bag slice"):
-        kimera.make_kimera_fixture_bag(str(tmp_path / "c"), n_scans=1,
-                                       camera=True)
 
 
 def test_native_build_refuses_a_broken_compiler(bag, tmp_path, monkeypatch):
