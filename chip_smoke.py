@@ -104,6 +104,20 @@ Phases (any failure raises and the script exits non-zero without a result):
      pose gap between the runs printed; K1-K4 held to their plain versions
      on the operands of one camera-on bag scan (phase 3's tolerances); the
      staging ms a scan and the staging-included scans/s beside phase 9's.
+ 12. the reference-parity configuration ``GCConfig()`` (f32, the bank of
+     K = 4, the per-slot view at V = 7,168, a view refresh every scan):
+     (a) 100 drifting scans (seed 3), counted and sync-checked as phase 4
+     (SLAM beats odometry; K3, K4 twice and K5 every scan, K1/K2 never),
+     a 20-scan rerun bit for bit, ms/scan beside phase 4's; (b) the inert
+     bank, f64 K = 4 against ``k_hyp=1`` over 20 scans (rtol 1e-9, atol
+     1e-11) with the weights uniform to 1e-12, and the f32 gap of the pair;
+     (c) real MHT (spreads 0.08 rad / 0.15 m, 30 scans of seed 5): the
+     weights finite, summing to 1, spread > 0.05, hypothesis 0 the largest,
+     the barycenter beating odometry; (d) the batched replay of
+     ``GCConfig(k_hyp=2)``, B = 8 x 20 scans: instance 0 within 2.9e-4 of
+     its one-instance replay, no vmap fallback, the peak below the memory
+     envelope; (e) K4 on the fuse operands captured in (a), against its
+     plain version (1.5e-3 relative), timed, a ``kernels`` row of its own.
 Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched in
 f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64: stage 1 bit
 for bit against ``tile_params`` on the seeded scene, at its edges and at
@@ -114,8 +128,8 @@ each stage's kernels once a call) and K9 (N = 1536, V = 5376, k = 8, also batche
 against their plain versions.
 Then it prints the ``kernels`` JSON line (launches of the one-instance
 kernels from the ``GCConfig.tpu()`` replay of phase 4, of the batched ones
-from phase 6, of K9 from phase 7 and of K8 from phase 8) and, last, the
-``ok`` line.
+from phase 6, of K9 from phase 7, of K8 from phase 8 and of K4's per-slot
+fuse row from phase 12) and, last, the ``ok`` line.
 The script imports nothing of JAX and nothing of ``fl_slam_tpu``.
 """
 
@@ -163,6 +177,18 @@ H100_F32_NONFMA_OPS_PER_S = 33.5e12
 # fused multiply-adds, carried through the 22x22 solves.
 BELIEF_TOL = {"predict_evidence": {"float32": 1e-3, "float64": 1e-9},
               "scalar_tail": {"float32": 5e-4, "float64": 1e-9}}
+# Phase 12, GCConfig() (the reference-parity configuration): (b) the inert
+# bank's f64 replays over this many scans; (c) real MHT at the reference
+# test's spreads (tests/test_pipeline_e2e.py:160-182), this many scans of
+# this seed; (d) B = N_INST instances of this many scans at k_hyp=2, instance
+# 0 within the batched reordering level of the f32 replay (PERF.md, §6)
+# of its one-instance replay; (e) K4's relative tolerance (max |kernel -
+# plain| over max |plain|) on the per-slot fuse operands (PERF.md row 7).
+N_INERT = 20
+N_MHT, MHT_SEED = 30, 5
+N_REF_BATCHED = 20
+BATCHED_F32_TOL = 2.9e-4
+K4_PER_SLOT_TOL = 1.5e-3
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 _VMAP_FALLBACK = "There is a performance drop because we have not yet"
 
@@ -1737,18 +1763,19 @@ def _first_scans(shards, n):
     return tuple(type(sc)(*[f[:, :n] for f in sc]) for sc in shards)
 
 
-def _batched_run(cfg, dss, label: str) -> dict:
+def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
     """Stage ``dss`` as one batched input (staging seconds printed), run a
     warm-up chunk, then the counted, sync-checked batched replay of all
     their scans; hold instance 0 against the single-instance
-    ``insert_page_dense=True`` replay of the same data (< 1e-3). Returns
-    what phases 6 and 10 read and check."""
+    ``insert_page_dense=True`` replay of the same data (< ``tol``).
+    Returns what phases 6, 10 and 12 read and check."""
     import collections
     import re
 
     import torch
     from fl_slam_tpu_torch import certs
     from fl_slam_tpu_torch.io.synthetic import to_scan_inputs
+    from fl_slam_tpu_torch.ops.belief_kernels import use_belief_kernels
     from fl_slam_tpu_torch.parallel import replicas
     from fl_slam_tpu_torch.pipeline import init_state, replay
 
@@ -1797,12 +1824,14 @@ def _batched_run(cfg, dss, label: str) -> dict:
     diff0 = (out.pose[0] - one.pose).abs().max().item()
     T = out.pose.shape[1]
     want = {name: 0 for name in counts}
-    for name in ("predict_evidence[batched]", "scalar_tail[batched]",
-                 "sinkhorn_piT[batched]",
+    for name in ("sinkhorn_piT[batched]",
                  "moment_segment_sum[surfels,batched]",
-                 "moment_segment_sum[fuse,batched]", "page_gather_ff",
-                 "page_writeback_ff"):
+                 "moment_segment_sum[fuse,batched]"):
         want[name] = T
+    if use_belief_kernels(cfg):
+        want["predict_evidence[batched]"] = want["scalar_tail[batched]"] = T
+    if cfg.view_page:       # the dense-page insert (K6)
+        want["page_gather_ff"] = want["page_writeback_ff"] = T
     want["conditional_slab_exchange_ff[batched]"] = T // R
     for name, n in counts.items():
         if n != want[name]:
@@ -1810,7 +1839,7 @@ def _batched_run(cfg, dss, label: str) -> dict:
                                  f"expected {want[name]}")
     if syncs:
         raise AssertionError(f"{label}: {syncs} host syncs")
-    if not diff0 < 1e-3:
+    if not diff0 < tol:
         raise AssertionError(f"{label}: instance 0 differs from the single "
                              f"replay by {diff0}")
     return dict(out=out, counts=counts, syncs=syncs, t_run=t_run, peak=peak,
@@ -2538,6 +2567,196 @@ def camera_path() -> dict:
     return on["launches"]
 
 
+def _k4_per_slot_row(ops: dict, launches: int) -> dict:
+    """Phase 12 (e): K4's fuse site on the operands captured from one scan
+    of the ``GCConfig()`` replay (the per-slot view, V = 7,168), against
+    its plain version at row 7's tolerance, timed beside its plain version
+    and ``index_add_``; a ``kernels`` row of its own."""
+    import torch
+    from fl_slam_tpu_torch.ops import surfel_kernels
+
+    (pay, cell, n_cells), _ = ops["moment_segment_sum"]
+    F, Np = pay.shape
+
+    def k4():
+        return surfel_kernels.moment_segment_sum(pay, cell, n_cells,
+                                                 site="fuse")
+
+    got, again = k4(), k4()
+    want = surfel_kernels.moment_segment_sum_plain(pay, cell, n_cells)
+    rel = _rel_err(got, want)
+    if not (rel <= K4_PER_SLOT_TOL and torch.equal(got, again)):
+        raise AssertionError(f"K4 on the per-slot fuse operands: {rel} "
+                             f"relative > {K4_PER_SLOT_TOL}, rerun "
+                             f"identical {torch.equal(got, again)}")
+    zeros = torch.zeros((n_cells, F), device=pay.device, dtype=pay.dtype)
+    payT = pay.T.contiguous()
+    bound, by = _bound_ms((F * Np + Np + F * n_cells) * 4, F * Np)
+    return dict(
+        name="moment_segment_sum[fuse,per-slot view]",
+        route="cuda", source="fl_slam_tpu_torch/csrc/moment.cu",
+        replaces="fl_slam_tpu/ops/surfel_kernels.py:89", site="fuse",
+        launches=launches, max_abs_err=(got - want).abs().max().item(),
+        max_rel_err=rel, tolerance_rel=K4_PER_SLOT_TOL,
+        ms=_time_ms(k4), device_ms=_device_ms(k4),
+        plain_ms=_time_ms(lambda: surfel_kernels.moment_segment_sum_plain(
+            pay, cell, n_cells)),
+        bound_ms=bound, bound_by=by,
+        library_ms=_time_ms(lambda: zeros.clone().index_add_(0, cell,
+                                                             payT)),
+        shape=f"payload ({F}, {Np}) f32 into V = {n_cells} view rows, "
+              "captured from GCConfig()")
+
+
+def reference_config_path(main: dict) -> list:
+    """Phase 12: the reference-parity configuration ``GCConfig()`` (f32, the
+    bank of K = 4, the per-slot view, a view refresh every scan). (a) Over
+    N_SCANS drifting scans (seed SEED), counted and sync-checked as phase
+    4: SLAM beats odometry, K3 / K4 / K5 launch once / twice / once a scan,
+    K1 / K2 never, a 20-scan rerun bit for bit, ms/scan beside phase 4's.
+    (b) The inert bank: f64 K = 4 against k_hyp=1 over N_INERT scans
+    (rtol 1e-9, atol 1e-11), its weights uniform (1e-12); the f32 gap of
+    the same pair printed. (c) Real MHT: N_MHT scans of seed MHT_SEED at
+    the reference test's spreads: weights finite, summing to 1, spread >
+    0.05 with hypothesis 0 the largest, the barycenter beating odometry.
+    (d) Batched: B = N_INST at ``GCConfig(k_hyp=2)`` over N_REF_BATCHED
+    scans: instance 0 against its one-instance replay (BATCHED_F32_TOL), no
+    vmap fallback, the peak below the memory envelope. (e) K4 on the fuse
+    operands captured in (a). Returns the ``kernels`` row of (e)."""
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch import certs
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.eval.metrics import ate
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    t_phase = time.perf_counter()
+    drift = dict(odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+
+    def run(cfg, ds, scans):
+        st = init_state(cfg, anchor0=ds.gt_poses[0],
+                        t0=float(ds.gt_stamps[0]) - 0.1)
+        return replay(st, scans, cfg)
+
+    # (a) GCConfig() itself.
+    cfg = GCConfig()
+    ds = simulate(cfg, n_scans=N_SCANS, seed=SEED, **drift)
+    scans = to_scan_inputs(ds, cfg)
+    a = run_replay(cfg, "GCConfig()", {
+        "sinkhorn_piT": N_SCANS, "moment_segment_sum[surfels]": N_SCANS,
+        "moment_segment_sum[fuse]": N_SCANS,
+        "conditional_slab_exchange_ff": N_SCANS}, ds, scans)
+    head = _slice(scans, N_RERUN)
+    p1 = run(cfg, ds, head)[1].pose
+    box = {}
+    ops = _capture(lambda: box.update(out=run(cfg, ds, head)[1]))
+    rerun = bool(torch.equal(p1, box["out"].pose))
+    if not rerun:
+        raise AssertionError("GCConfig(): reruns differ")
+
+    # (b) The inert bank, f64 and f32.
+    c64 = GCConfig(dtype="float64")
+    ds_b = simulate(c64, n_scans=N_INERT, seed=SEED, **drift)
+    sc64 = to_scan_inputs(ds_b, c64)
+    fin4, out4 = run(c64, ds_b, sc64)
+    k1 = c64.replace(k_hyp=1)
+    out1 = run(k1, ds_b, to_scan_inputs(ds_b, k1))[1]
+    p4, p1_ = out4.pose.cpu().numpy(), out1.pose.cpu().numpy()
+    inert_gap = float(np.abs(p4 - p1_).max())
+    w4 = fin4.hyp_weights.cpu().numpy()
+    uniform_gap = float(np.abs(w4 - 0.25).max())
+    f32_k1 = cfg.replace(k_hyp=1)
+    f32_gap = float((run(f32_k1, ds, _slice(to_scan_inputs(ds, f32_k1),
+                                             N_INERT))[1].pose
+                     - p1[:N_INERT]).abs().max())
+    if not np.allclose(p4, p1_, rtol=1e-9, atol=1e-11):
+        raise AssertionError(f"inert bank: f64 K = 4 against K = 1 "
+                             f"{inert_gap}")
+    if not uniform_gap <= 1e-12:
+        raise AssertionError(f"inert bank: weights {w4}")
+    del fin4, out4, sc64
+
+    # (c) Real MHT.
+    cm = GCConfig(hyp_init_spread_rot=0.08, hyp_init_spread_trans=0.15)
+    ds_m = simulate(cm, n_scans=N_MHT, seed=MHT_SEED, **drift)
+    fin_m, out_m = run(cm, ds_m, to_scan_inputs(ds_m, cm))
+    w = fin_m.hyp_weights.cpu().numpy()
+    m = ate(out_m.pose.cpu().numpy(), ds_m.gt_poses, align="initial")
+    mo = ate(ds_m.scans["odom_pose"], ds_m.gt_poses, align="initial")
+    mht_ok = bool(np.isfinite(w).all() and abs(w.sum() - 1.0) < 1e-6
+                  and w.max() - w.min() > 0.05 and int(np.argmax(w)) == 0
+                  and m["trans"]["rmse"] < mo["trans"]["rmse"]
+                  and m["rot_deg"]["rmse"] < mo["rot_deg"]["rmse"])
+    del fin_m
+
+    # (d) Batched, B = N_INST at K = 2.
+    cb = GCConfig(k_hyp=2)
+    dss = [simulate(cb, n_scans=N_REF_BATCHED, seed=SEED + i, **drift)
+           for i in range(N_INST)]
+    b = _batched_run(cb, dss, "GCConfig(k_hyp=2) batched",
+                     tol=BATCHED_F32_TOL)
+    envelope = certs.memory_envelope(cb, N_INST)["peak_bytes_est"]
+
+    # (e) K4 on the per-slot fuse operands of (a).
+    row = _k4_per_slot_row(ops, a["launches"]["moment_segment_sum[fuse]"])
+    result = dict(
+        a=dict(config="GCConfig()", scans=N_SCANS,
+               ms_per_scan=a["ms_per_scan"],
+               ms_per_scan_tpu_phase4=main["ms_per_scan"],
+               ate=[a["ate_trans_m"], a["ate_rot_deg"]],
+               odom_ate=[a["odom_ate_trans_m"], a["odom_ate_rot_deg"]],
+               launches={k: v for k, v in a["launches"].items() if v},
+               host_syncs_in_replay=a["host_syncs_in_replay"],
+               peak_mem_bytes=a["peak_mem_bytes"],
+               rerun_scans=N_RERUN, rerun_identical=rerun),
+        b=dict(scans=N_INERT, f64_k4_vs_k1_max_pose_diff=inert_gap,
+               weights_max_dev_from_uniform=uniform_gap,
+               f32_k4_vs_k1_max_pose_diff=f32_gap),
+        c=dict(scans=N_MHT, seed=MHT_SEED, weights=w.tolist(),
+               ate=[m["trans"]["rmse"], m["rot_deg"]["rmse"]],
+               odom_ate=[mo["trans"]["rmse"], mo["rot_deg"]["rmse"]],
+               hyp_nll_spread_max=float(out_m.certs["hyp.nll_spread"]
+                                        .max()),
+               hyp_anchor_spread_max=float(out_m.certs["hyp.anchor_spread"]
+                                           .max())),
+        d=dict(instances=N_INST, scans=N_REF_BATCHED,
+               ms_per_batched_scan=b["t_run"] / N_REF_BATCHED * 1e3,
+               launches={k: v for k, v in b["counts"].items() if v},
+               host_syncs_in_replay=b["syncs"],
+               vmap_fallback_warnings=sum(b["fallbacks"].values()),
+               vmap_fallback_ops=dict(b["fallbacks"]),
+               instance0_vs_single_max_pose_diff=b["diff0"],
+               peak_mem_bytes=b["peak"], envelope_bytes=envelope,
+               peak_factor=b["peak"] / (N_INST * b["state_bytes"])),
+        e={k: row[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                               "device_ms", "plain_ms", "library_ms",
+                               "bound_ms", "shape")},
+        phase_s=time.perf_counter() - t_phase)
+    print("reference config: " + json.dumps(result), flush=True)
+    print(f"reference config: GCConfig() {a['ms_per_scan']:.1f} ms/scan "
+          f"(GCConfig.tpu() {main['ms_per_scan']:.1f}), ATE "
+          f"{a['ate_trans_m']:.4f} m / {a['ate_rot_deg']:.3f} deg, launches "
+          f"{result['a']['launches']}, host syncs "
+          f"{a['host_syncs_in_replay']}, rerun identical {rerun}; inert bank "
+          f"f64 {inert_gap:.3e}, f32 {f32_gap:.3e}, weights {uniform_gap:.1e}"
+          f" from uniform; MHT weights {np.round(w, 4).tolist()}; batched "
+          f"instance 0 {b['diff0']:.3e}, fallbacks "
+          f"{result['d']['vmap_fallback_warnings']}, peak "
+          f"{b['peak'] / 1e9:.2f} GB of {envelope / 1e9:.2f}; K4 per slot "
+          f"{row['max_rel_err']:.2e} relative; phase "
+          f"{result['phase_s']:.1f} s", flush=True)
+    if not mht_ok:
+        raise AssertionError(f"real MHT: {result['c']}")
+    if b["fallbacks"]:
+        raise AssertionError(f"batched GCConfig(k_hyp=2): vmap fallbacks "
+                             f"{dict(b['fallbacks'])}")
+    if not b["peak"] < envelope:
+        raise AssertionError(f"batched GCConfig(k_hyp=2): peak {b['peak']} "
+                             f"above the envelope {envelope}")
+    return [row]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2572,6 +2791,7 @@ def main() -> int:
     bag_off = bag_path()
     camera_path()
     camera_bag_path(bag_off)
+    ref_rows = reference_config_path(main_run)
     for row in rows:
         key = row.pop("launch_key")
         # One-instance kernels count in the GCConfig.tpu() replay of phase
@@ -2582,7 +2802,8 @@ def main() -> int:
                            else scounts[key] if key in _SELECT_PATH
                            else rcounts[key] if key in _RENDER_PATH
                            else bcounts[key])
-    print(json.dumps({"kernels": rows}), flush=True)
+    # K4 at the per-slot view's fuse shape counts in phase 12's GCConfig().
+    print(json.dumps({"kernels": rows + ref_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

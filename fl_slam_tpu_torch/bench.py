@@ -25,10 +25,10 @@ Parts:
     part's scans (``parallel.replicas.batched_replay``), aggregate
     scan-instances/s beside the single-instance point.
 
-It runs on the CUDA device and raises without one; ``--cpu`` runs the small
-test budgets at the sizes of ``CPU_SIZES`` on the CPU (a check that the
-bench runs, not a measurement of the card). The line carries the card's
-name and power limit.
+It runs on the CUDA device and raises without one; ``--cpu`` runs
+``GCConfig.small()`` at the sizes of ``CPU_SIZES`` on the CPU (a check
+that the bench runs, not a measurement of the card). The line carries the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -220,13 +220,12 @@ def main(argv=None) -> dict:
     import torch
 
     from fl_slam_tpu_torch.config import GCConfig
-    from fl_slam_tpu_torch.eval.run_eval import small_config
     from fl_slam_tpu_torch.io.synthetic import simulate
     from fl_slam_tpu_torch.runtime import resolve_device
 
     dev = resolve_device("cpu" if args.cpu else None)
     card = dev.type == "cuda"
-    cfg = GCConfig.tpu() if card else small_config()
+    cfg = GCConfig.tpu() if card else GCConfig.small()
     n = CARD_SIZES if card else CPU_SIZES
     ds = simulate(cfg, n_scans=n["scans"], seed=0)
     replay_r = _replay_part(cfg, ds, dev, n["reps"])

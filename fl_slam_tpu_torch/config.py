@@ -2,8 +2,20 @@
 
 A copy of ``fl_slam_tpu/config.py`` with every knob, ``small()``, ``tpu()``
 and ``validate()`` unchanged; ``torch_dtype`` replaces the JAX ``jdtype``.
-The port runs only part of this knob space: ``require_slice`` names the
-switches it does not run yet and raises for them.
+The port runs every configuration the reference runs: ``GCConfig()`` (the
+reference-parity bank of K = 4 and the per-slot view), ``small()``,
+``tpu()`` and real MHT (``hyp_init_spread_*`` > 0).
+
+The kernel switches ``sinkhorn_kernel``, ``surfel_moment_kernel``,
+``fuse_moment_kernel`` and ``slab_dma_kernel`` pick, in the reference,
+between a TPU kernel and an XLA form of the same function (and on the CPU
+the reference takes the XLA form whatever they say). The port has one
+implementation of each: the hand-written CUDA kernel (K3, K4, K5) on CUDA
+tensors, its plain PyTorch twin on CPU tensors. So it accepts these
+switches either way and runs the same code; ``fuse_moment_kernel=False``
+does not become a float-atomic ``index_add_``, which would break the
+bit-identical reruns. ``belief_kernel`` runs K1/K2 only at ``k_hyp=1``, as
+in the reference.
 
 The reference keeps these as module-level constants ("constants are
 priors/budgets", ``common/constants.py:55-489``) validated against YAML at node
@@ -463,9 +475,10 @@ class GCConfig:
     camera_fuse_geom_scale: float = 1.0
     # Run the K=1 belief chain as the two belief kernels
     # (ops/belief_kernels.py): K1 predict + evidence, K2 the scalar tail
-    # (steps 9-15 + IW apply). In the port this holds on every device: a
-    # CUDA tensor launches the kernels, a CPU tensor runs their plain
-    # versions. False = the op-by-op branch (the reference's XLA path).
+    # (steps 9-15 + IW apply), at k_hyp=1 only (a bank of K > 1 runs op by
+    # op). In the port this holds on every device: a CUDA tensor launches
+    # the kernels, a CPU tensor runs their plain versions. False = the
+    # op-by-op branch (the reference's XLA path).
     belief_kernel: bool = True
     # Run merge-reduce once per view chunk (on the freshly gathered view at
     # _chunk_begin — exactly when newly written-back/inserted duplicates
@@ -643,28 +656,3 @@ def _hex_disk_count(r: int) -> int:
 
 DEFAULT_CONFIG = GCConfig()
 
-
-# Switches the port does not run yet: (predicate on the config, message).
-# Each message names the slice that adds the path. The main path,
-# GCConfig.tpu() (with or without belief_kernel and odom_pose_relative),
-# passes.
-_UNPORTED = (
-    (lambda c: c.k_hyp != 1,
-     "k_hyp > 1 (the MHT hypothesis bank) comes with the K>1 bank slice"),
-    (lambda c: c.view_page == 0,
-     "view_page=0 (the per-slot view path) comes with a later slice"),
-    (lambda c: not (c.sinkhorn_kernel and c.surfel_moment_kernel
-                    and c.fuse_moment_kernel and c.slab_dma_kernel),
-     "the port runs its Sinkhorn, moment and slab-exchange kernels always "
-     "(CUDA tensors; their plain versions on CPU tensors, also in the "
-     "batched replay); no slice ports the reference's XLA forms of them"),
-)
-
-
-def require_slice(cfg: GCConfig) -> GCConfig:
-    """Raise NotImplementedError for a switch the port does not run yet
-    (``GCConfig.tpu()``, the main path, passes)."""
-    for unported, msg in _UNPORTED:
-        if unported(cfg):
-            raise NotImplementedError(f"fl_slam_tpu_torch: {msg}")
-    return cfg

@@ -1,6 +1,6 @@
 """22D information-form belief over chart GC-RIGHT-01 (port of
 ``fl_slam_tpu/core/belief.py``). A plain NamedTuple of tensors; the
-hypothesis bank is an explicit leading K axis (K = 1 in this slice)."""
+hypothesis bank is an explicit leading K axis."""
 
 from __future__ import annotations
 

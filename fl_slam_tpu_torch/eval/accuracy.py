@@ -12,7 +12,7 @@ overridden as key=value:
   python -m fl_slam_tpu_torch.eval.accuracy --camera         # RGB-D camera on
 
 It runs ``GCConfig.tpu()`` on the CUDA device (and raises without one);
-``--cpu`` asks for the CPU and the small test budgets of ``eval.run_eval``,
+``--cpu`` asks for the CPU and ``GCConfig.small()`` (the overrides apply),
 as ``run_eval --cpu`` does (the reference tool runs on the CPU unless asked
 for its accelerator). ``--camera`` stages the synthetic RGB-D camera's rows
 (``io.synthetic.simulate(with_camera=True)``) into every scan.
@@ -104,11 +104,9 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     from fl_slam_tpu_torch.config import GCConfig
-    from fl_slam_tpu_torch.eval.run_eval import small_config
 
     overrides = dict(parse_override(s) for s in args.overrides)
-    cfg = (small_config(**overrides) if args.cpu
-           else GCConfig.tpu(**overrides))
+    cfg = (GCConfig.small if args.cpu else GCConfig.tpu)(**overrides)
     rows = evaluate(cfg, scans=args.scans, seeds=args.seeds,
                     drift_vel=args.drift_vel, drift_yaw=args.drift_yaw,
                     world=args.world, camera=args.camera,

@@ -9,7 +9,7 @@ time-base and overlap gates -> ATE / RPE -> artifacts (``trajectory.tum``,
 ``splat_export.npz``, ``runtime_manifest.json``).
 
   python -m fl_slam_tpu_torch.eval.run_eval --out runs/eval1 [--scans 100]
-      [--seed 3] [--drift] [--camera] [--cpu] [--small]
+      [--seed 3] [--drift] [--camera] [--cpu] [--small] [key=value ...]
   python -m fl_slam_tpu_torch.eval.run_eval --out runs/k --profile kimera
       --bag <bag dir> --gt <gt.tum> [--seg-len 200 --stream] [--calib c.json]
 
@@ -20,8 +20,10 @@ turns on the documented camera topics). A camera asked for without
 intrinsics, or that reaches no scan, fails with code 2.
 
 It runs on the CUDA device (and raises without one) unless ``--cpu`` is
-given; on the CPU it uses the small test budgets, as the reference does. A
-failed gate exits with code 2.
+given. The config is ``GCConfig.tpu()``, or ``GCConfig.small()`` on the CPU
+or with ``--small``, as the reference's ``tools/run_eval.py`` has it;
+trailing ``key=value`` arguments override its fields. A failed gate exits
+with code 2.
 """
 
 from __future__ import annotations
@@ -32,20 +34,6 @@ import os
 import time
 
 import numpy as np
-
-# The small test budgets of the port's slice (the CPU default): one
-# hypothesis, the paged view, chunks of 2 scans (so segments of any even
-# length fall on chunk boundaries), the op-by-op belief branch.
-SMALL_SLICE = dict(k_hyp=1, view_page=64, view_refresh_every=2,
-                   merge_at_chunk=True, approx_topk=True, select_bf16=True,
-                   surfel_moment_kernel=True, fuse_moment_kernel=True,
-                   belief_kernel=False, camera_fuse_geom_scale=0.0)
-
-
-def small_config(**overrides):
-    from fl_slam_tpu_torch.config import GCConfig
-    return GCConfig.small(**{**SMALL_SLICE, **overrides})
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -81,6 +69,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", default=None, choices=["kimera"],
                     help="'kimera': the /acl_jackal/* topics of the "
                     "reference workload (io.kimera)")
+    ap.add_argument("overrides", nargs="*",
+                    help="GCConfig overrides as key=value")
     return ap
 
 
@@ -131,6 +121,7 @@ def main(argv=None) -> dict:
 
     from fl_slam_tpu_torch import certs as C
     from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.eval.accuracy import parse_override
     from fl_slam_tpu_torch.eval.metrics import ate, rpe, save_tum
     from fl_slam_tpu_torch.pipeline import (init_state, replay,
                                             replay_segments)
@@ -146,7 +137,8 @@ def main(argv=None) -> dict:
             _fail("--scans 0 (whole bag) needs --bag")
         args.scans = None
     small = args.small or dev.type == "cpu"
-    cfg = small_config() if small else GCConfig.tpu()
+    overrides = dict(parse_override(o) for o in args.overrides)
+    cfg = (GCConfig.small if small else GCConfig.tpu)(**overrides)
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"[stage] device={dev} ({kind}) "

@@ -33,6 +33,9 @@ class AssociationResult(NamedTuple):
     row_budget: torch.Tensor        # (N,) source marginal a
 
 
+_DENSE_BLOCK = 1 << 21    # (measurement, view row) pairs a block holds
+
+
 def _log_sinh_ratio(k, eps):
     """A_vmf(k) = log(4 pi) + log(sinh k) - log k, stable everywhere."""
     k = torch.clamp(k, min=eps)
@@ -88,25 +91,46 @@ def associate(meas_pos, meas_dir, meas_kappa, meas_valid, view: MapView,
         return _finish_associate(meas_pos, meas_kappa, meas_valid,
                                  meas_weights, view, scan_seq, cfg, neg_cost,
                                  cand_view_idx, eta_m, A_k1, proxy_sel=True)
-    dir_ok = (meas_kappa[:, None] > 0.0) & (view.kappas[None, :] > 0.0)
-    d_pos = x2 + m2 - 2.0 * meas_pos @ view.positions.T
-    eta_v = view.kappas[:, None] * view.directions
-    km2 = (meas_kappa[:, None] ** 2 + view.kappas[None, :] ** 2
-           + 2.0 * (eta_m @ eta_v.T))
-    km = 0.5 * torch.sqrt(torch.clamp(km2, min=0.0))
-    A_km = _log_sinh_ratio(torch.clamp(km, min=eig_min), eig_min)
-    A_k2 = _log_sinh_ratio(torch.clamp(view.kappas, min=eig_min),
-                           eig_min)[None, :]
-    bc = torch.exp(A_km - 0.5 * (A_k1 + A_k2))
-    d_dir = torch.where(dir_ok, torch.clamp(1.0 - bc, min=0.0), 0.0)
-    C_full = d_pos + COST_BETA * d_dir + recency
-    C_full = torch.where(view.valid[None, :], C_full, COST_INVALID)
-    k_eff = min(K, C_full.shape[1])
-    neg_cost, cand_view_idx = top_k_maybe_approx(-C_full, k_eff,
-                                                 cfg.approx_topk)
+    # The exact cost over every (measurement, view row) pair, by row blocks
+    # of at most _DENSE_BLOCK pairs: rows are independent, and a block
+    # bounds the (N, V) temporaries and the sort's buffers (GCConfig(): N =
+    # 1,536, V = 7,168, six blocks; the test budgets take one).
+    rows = max(1, _DENSE_BLOCK // max(1, view.packed.shape[0]))
+    k_eff = min(K, view.packed.shape[0])
+    parts = [_dense_select(p, kap, em, a1, x, view, recency, k_eff, cfg)
+             for p, kap, em, a1, x in zip(
+                 meas_pos.split(rows), meas_kappa.split(rows),
+                 eta_m.split(rows), A_k1.split(rows), x2.split(rows))]
+    neg_cost = torch.cat([p[0] for p in parts])
+    cand_view_idx = torch.cat([p[1] for p in parts])
     return _finish_associate(meas_pos, meas_kappa, meas_valid, meas_weights,
                              view, scan_seq, cfg, neg_cost, cand_view_idx,
                              eta_m, A_k1, proxy_sel=False)
+
+
+def _dense_select(meas_pos, meas_kappa, eta_m, A_k1, x2, view: MapView,
+                  recency, k_eff: int, cfg: GCConfig):
+    """The exact cost of a block of rows against every view row and its
+    top ``k_eff`` (negated costs, view rows). The (rows, V) chain reuses
+    its names, so each step frees the one before."""
+    eig_min = 1e-12
+    m2 = torch.sum(view.positions * view.positions, -1)[None, :]
+    d_pos = x2 + m2 - 2.0 * meas_pos @ view.positions.T
+    eta_v = view.kappas[:, None] * view.directions
+    km = (meas_kappa[:, None] ** 2 + view.kappas[None, :] ** 2
+          + 2.0 * (eta_m @ eta_v.T))
+    km = 0.5 * torch.sqrt(torch.clamp(km, min=0.0))
+    A_k2 = _log_sinh_ratio(torch.clamp(view.kappas, min=eig_min),
+                           eig_min)[None, :]
+    bc = torch.exp(_log_sinh_ratio(torch.clamp(km, min=eig_min), eig_min)
+                   - 0.5 * (A_k1 + A_k2))
+    del km
+    dir_ok = (meas_kappa[:, None] > 0.0) & (view.kappas[None, :] > 0.0)
+    C = d_pos + COST_BETA * torch.where(dir_ok, torch.clamp(1.0 - bc,
+                                                            min=0.0), 0.0)
+    del d_pos, bc, dir_ok
+    C = torch.where(view.valid[None, :], C + recency, COST_INVALID)
+    return top_k_maybe_approx(-C, k_eff, cfg.approx_topk)
 
 
 def _finish_associate(meas_pos, meas_kappa, meas_valid, meas_weights, view,

@@ -116,6 +116,13 @@ launches = {"predict_evidence": 0, "scalar_tail": 0,
             "predict_evidence_batched": 0, "scalar_tail_batched": 0}
 
 
+def use_belief_kernels(cfg: GCConfig) -> bool:
+    """K1 and K2 run the K = 1 chain (``belief_kernel`` at ``k_hyp=1``, the
+    reference's ``use_scalar_tail_kernel`` gate); a bank of K > 1 runs its
+    per-hypothesis steps op by op."""
+    return cfg.belief_kernel and cfg.k_hyp == 1
+
+
 # ---------------------------------------------------------------------------
 # Small linear algebra of the plain versions (single instance).
 # ---------------------------------------------------------------------------

@@ -1,14 +1,20 @@
 """The per-scan inference step and the chunked replay (port of
-``fl_slam_tpu/pipeline.py`` on the ported path: ``init_state``,
-``_chunk_begin``, ``_scan_core``, ``_chunk_end``, ``process_scan``,
-``flush_slabs``, the chunked ``replay`` and ``replay_segments``).
+``fl_slam_tpu/pipeline.py``: ``init_state``, ``_chunk_begin``,
+``_scan_core``, ``_chunk_end``, ``process_scan``, ``flush_slabs``, the
+chunked ``replay`` and ``replay_segments``).
 
-``_scan_core`` has the reference's two belief branches: with
-``belief_kernel`` (``GCConfig.tpu()``) the K=1 chain runs as the kernels K1
-``predict_evidence`` and K2 ``scalar_tail``; without it, op by op (the
-reference's XLA branch). The hypothesis bank keeps an explicit leading K
-axis (K = 1: ``config.require_slice``); the per-hypothesis algebra runs on
-hypothesis 0. ``lax.scan`` becomes a Python loop over chunks of R =
+The hypothesis bank is a leading K axis on the belief, as in the
+reference: the 22-D algebra (predict, evidence, fuse, recompose, anchor
+drift) runs per hypothesis under ``torch.func.vmap``; the measurement side
+(deskew, surfels, view, association, visual evidence, the map update) runs
+once a scan at hypothesis 0's linearization point. The barycenter gives the
+published pose; with real MHT (``mht_enabled``) each hypothesis's odometry
+likelihood updates its weight and the bank is carried into hypothesis 0's
+chart before it is averaged. At K = 1 with ``belief_kernel`` the K = 1
+chain runs as the kernels K1 ``predict_evidence`` and K2 ``scalar_tail``;
+otherwise the per-hypothesis steps run op by op (the reference's XLA
+branch). The map view is paged (``view_page``) or per slot
+(``view_page=0``). ``lax.scan`` becomes a Python loop over chunks of R =
 ``view_refresh_every`` scans. Nothing on the per-scan path reads a device
 value on the host: the chunk-boundary ``refresh`` flag stays a device tensor
 that the slab-exchange kernel (K5) reads, and the first-scan flag of the
@@ -21,14 +27,15 @@ reference donates them to the compiled replay the same way).
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from fl_slam_tpu_torch.config import (GRAVITY_W, IDX_BA, IDX_BG, IDX_DT,
-                                      IDX_POSE, IDX_VEL, GCConfig,
-                                      require_slice)
+from fl_slam_tpu_torch.config import (D_Z, GRAVITY_W, IDX_BA, IDX_BG, IDX_DT,
+                                      IDX_POSE, IDX_VEL, GCConfig)
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.core.belief import (Belief, floor_and_normalize_weights,
                                            identity_belief, world_pose,
@@ -116,17 +123,21 @@ class ViewCtx(NamedTuple):
     put_idx: torch.Tensor
     active_keys: torch.Tensor
     certs: dict
-    put_pages: torch.Tensor
-    page_stats: tuple
+    put_pages: torch.Tensor = None    # paged view only
+    page_stats: tuple = None          # paged view only
 
 
 _PE_GRAV_PROJ = belief_kernels.PE_CERT_KEYS.index("imu_grav.psd_projection")
 
 
 def _kw_view(cfg: GCConfig) -> int:
-    vp = cfg.m_tile_view // cfg.view_page
-    npg = cfg.m_tile // cfg.view_page
-    return min(vp - vp // 2, npg) * cfg.view_page
+    """Length of each tile's weight-half prefix of the view rows (the
+    merge's scope): whole pages in the paged view."""
+    if cfg.view_page:
+        vp = cfg.m_tile_view // cfg.view_page
+        npg = cfg.m_tile // cfg.view_page
+        return min(vp - vp // 2, npg) * cfg.view_page
+    return min(cfg.m_tile_view - cfg.m_tile_view // 2, cfg.m_tile)
 
 
 def _on(device, *tensors):
@@ -144,16 +155,44 @@ def initial_belief(cfg: GCConfig, device, anchor0=None) -> Belief:
     return b._replace(L=torch.diag(1.0 / sig ** 2))
 
 
+def mht_enabled(cfg: GCConfig) -> bool:
+    """The bank carries real MHT (diverse initial means, per-scan weight
+    updates); with zero spreads it is the reference's inert bank of
+    identical hypotheses with frozen uniform weights."""
+    return cfg.k_hyp > 1 and (cfg.hyp_init_spread_rot > 0.0
+                              or cfg.hyp_init_spread_trans > 0.0)
+
+
+def hyp_perturbations(cfg: GCConfig) -> np.ndarray:
+    """(K, D_Z) deterministic pose offsets of the bank: hypothesis 0 is
+    unperturbed, k >= 1 cycles [+yaw, +x, +y, -yaw, -x, -y] at the
+    configured spreads, doubling each full cycle."""
+    out = np.zeros((cfg.k_hyp, D_Z))
+    pattern = [(5, cfg.hyp_init_spread_rot), (0, cfg.hyp_init_spread_trans),
+               (1, cfg.hyp_init_spread_trans)]
+    for k in range(1, cfg.k_hyp):
+        i = k - 1
+        idx, scale = pattern[i % 3]
+        out[k, idx] = (-1.0 if (i // 3) % 2 else 1.0) * scale * (1.0 + i // 6)
+    return out
+
+
 def init_state(cfg: GCConfig, anchor0=None, prior_info: float = 1e-6,
                t0: float = 0.0, device=None) -> PipelineState:
     """Initial state on ``device`` (default: the CUDA device; raises
     without one)."""
     cfg.validate()
-    require_slice(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
+    K = cfg.k_hyp
     one = initial_belief(cfg, dev, anchor0)
-    bank = Belief(L=one.L[None], h=one.h[None], anchor=one.anchor[None])
+    bank = Belief(*[torch.stack([x] * K) for x in one])
+    if mht_enabled(cfg):
+        # The perturbation moves the in-chart mean (h = L delta), not the
+        # anchor: the bank shares hypothesis 0's chart at t0.
+        delta = torch.tensor(hyp_perturbations(cfg), dtype=dt, device=dev)
+        bank = bank._replace(h=bank.h + torch.einsum("kij,kj->ki", bank.L,
+                                                     delta))
     atlas = atlas_ops.empty_atlas(cfg, dev)
     S = cfg.n_active_tiles
     slots0 = torch.arange(S, dtype=torch.int32, device=dev)
@@ -163,7 +202,7 @@ def init_state(cfg: GCConfig, anchor0=None, prior_info: float = 1e-6,
     return PipelineState(
         belief=bank, mu=mu0, Sigma=0.5 * (Sigma0 + Sigma0.transpose(-1, -2)),
         pose_prev7=pose_prev7, R_prev=se3.quat_to_R(pose_prev7[3:7]),
-        hyp_weights=torch.full((1,), 1.0, dtype=dt, device=dev),
+        hyp_weights=torch.full((K,), 1.0 / K, dtype=dt, device=dev),
         process_noise=noise_ops.init_process_noise(cfg, dev),
         meas_noise=noise_ops.init_measurement_noise(cfg, dev),
         atlas=atlas,
@@ -186,7 +225,8 @@ def flush_slabs(state: PipelineState, device=None) -> PipelineState:
 def _chunk_begin(state: PipelineState, cfg: GCConfig, *,
                  gamma_power: int = 1):
     """Tile activation, slab exchange (K5), the dense inflate/forget/cull
-    pass, paged view selection + gather, and the chunk-cadence merge."""
+    pass, view selection + gather (paged or per slot), and the
+    chunk-cadence merge."""
     certs: dict = {}
     seq = state.scan_seq
     S = cfg.n_active_tiles
@@ -217,10 +257,17 @@ def _chunk_begin(state: PipelineState, cfg: GCConfig, *,
                                             gamma_power=gamma_power)
     certs.update(c)
     SM = sff.ff.shape[1]
-    pages, dupp = atlas_ops.ff_select_view_pages(sff, S, cfg)
-    rows, slab_cols, dup, view_pids, put_pages = atlas_ops.ff_gather_pages(
-        sff, pages, dupp, S, cfg)
-    page_stats = atlas_ops.ff_page_stats(sff, S, cfg, seq)
+    put_pages = page_stats = None
+    if cfg.view_page:
+        pages, dupp = atlas_ops.ff_select_view_pages(sff, S, cfg)
+        rows, slab_cols, dup, view_pids, put_pages = \
+            atlas_ops.ff_gather_pages(sff, pages, dupp, S, cfg)
+        page_stats = atlas_ops.ff_page_stats(sff, S, cfg, seq)
+    else:
+        slab_cols, dup = atlas_ops.ff_select_view_cols(sff, S, cfg)
+        cols = slab_cols.to(torch.int64)
+        rows = sff.ff[:, cols].T
+        view_pids = sff.prim_ids[cols]
     put_idx = torch.where(dup, SM, slab_cols)
     if cfg.merge_at_chunk:
         rows, c = atlas_ops.compact_merge_reduce(rows, S, _kw_view(cfg), cfg)
@@ -235,9 +282,13 @@ def _chunk_begin(state: PipelineState, cfg: GCConfig, *,
 
 def _chunk_end(state: PipelineState, ctx: ViewCtx,
                cfg: GCConfig) -> PipelineState:
-    """Write the resident view rows back to their slab pages."""
-    return state._replace(slabs=atlas_ops.ff_write_view_pages(
-        state.slabs, ctx.put_pages, ctx.rows, cfg.n_active_tiles, cfg))
+    """Write the resident view rows back to their slab pages (paged) or
+    columns (per slot)."""
+    if cfg.view_page:
+        return state._replace(slabs=atlas_ops.ff_write_view_pages(
+            state.slabs, ctx.put_pages, ctx.rows, cfg.n_active_tiles, cfg))
+    return state._replace(slabs=atlas_ops.ff_write_view(state.slabs, ctx,
+                                                        ctx.rows))
 
 
 def process_scan(state: PipelineState, scan: ScanInput, cfg: GCConfig,
@@ -245,7 +296,6 @@ def process_scan(state: PipelineState, scan: ScanInput, cfg: GCConfig,
     """One full scan at per-scan refresh cadence."""
     dev = resolve_device(device)
     _on(dev, state.slabs.ff, scan.points)
-    require_slice(cfg)
     state, ctx = _chunk_begin(state, cfg, gamma_power=1)
     state, ctx, out = _scan_core(state, ctx, scan, cfg)
     return _chunk_end(state, ctx, cfg), out
@@ -422,68 +472,104 @@ def _fuse_and_recompose(belief_pred, mu_pred, L_io, h_io, z_lin, *, L_vis,
     return belief_rec, z_lin_new, dz_new, dpsi_q, dnu_q, k_certs
 
 
-def _xla_tail(state, cfg, bel_pred, mu_pred, L_io, h_io, z_lin, dz_odom,
-              L_vis, h_vis_rel, dpsi_gyro, dpsi_accel, dpsi_lidar, *, ess_imu,
-              ot_ess, ot_cost, grav_proj):
-    """Steps 9-15 and the IW apply op by op (the branch without the belief
-    kernels); also the visual-only pose correction certs, which K2 emits
+def _vmap_certs(certs: dict) -> dict:
+    """Hypothesis 0's slice of per-hypothesis certs."""
+    return {k: v[0] for k, v in certs.items()}
+
+
+def _bank_tail(state, cfg, bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k,
+               dz_odom0, nll_k, L_vis, h_vis_rel, dpsi_gyro, dpsi_accel,
+               dpsi_lidar, *, ess_imu, ot_ess, ot_cost, grav_proj):
+    """Steps 9-15 and the IW apply over the bank of K (the branch without
+    the belief kernels): temper, fuse, recompose and anchor drift per
+    hypothesis (``torch.func.vmap``), the weight update (real MHT), the
+    barycenter; also the visual-only pose correction certs, which K2 emits
     itself on the kernel branch."""
     certs: dict = {}
-    dt = mu_pred.dtype
+    dt = mu_pred_k.dtype
+    z_lin0 = z_lin_k[0]
     Lp6_d = L_vis[IDX_POSE, IDX_POSE]
     lift6 = 1e-9 + 1e-6 * torch.trace(Lp6_d) / 6.0
     dz_vis, _ = spd_solve_lifted(Lp6_d, h_vis_rel[IDX_POSE]
-                                 + Lp6_d @ z_lin[IDX_POSE], lift6)
-    dz_vis_rel = dz_vis - z_lin[IDX_POSE]
+                                 + Lp6_d @ z_lin0[IDX_POSE], lift6)
+    dz_vis_rel = dz_vis - z_lin0[IDX_POSE]
     certs["visual.implied_dtrans_norm"] = torch.linalg.norm(dz_vis_rel[:3])
     certs["visual.implied_dz"] = dz_vis_rel[2]
     certs["visual.implied_drot_norm"] = torch.linalg.norm(dz_vis_rel[3:6])
 
-    bel_rec, z_lin_new, dz_new, dpsi_q0, dnu_q0, kc = _fuse_and_recompose(
-        bel_pred, mu_pred, L_io, h_io, z_lin, L_vis=L_vis,
-        h_vis_rel=h_vis_rel, ess_imu=ess_imu, ot_ess=ot_ess, ot_cost=ot_cost,
-        grav_proj=grav_proj, cfg=cfg)
-    certs.update(kc)
-    w_hyp = floor_and_normalize_weights(state.hyp_weights,
-                                        cfg.hyp_weight_floor)
-    dpsi_q = torch.einsum("k,kabc->abc", w_hyp, dpsi_q0[None])
-    dnu_q = torch.einsum("k,ka->a", w_hyp, dnu_q0[None])
-    xi_t = torch.clamp(dz_odom[:3], -cfg.innovation_clip_trans,
+    fuse = functools.partial(
+        _fuse_and_recompose, L_vis=L_vis, h_vis_rel=h_vis_rel,
+        ess_imu=ess_imu, ot_ess=ot_ess, ot_cost=ot_cost, grav_proj=grav_proj,
+        cfg=cfg)
+    bel_rec_k, z_lin_new_k, dz_new_k, dpsi_q_k, dnu_q_k, kc = \
+        torch.func.vmap(fuse)(bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k)
+    certs.update(_vmap_certs(kc))
+    mht = mht_enabled(cfg)
+    if mht:
+        # Bayes update from each hypothesis's own odometry NLL, rebased at
+        # the minimum; floored and renormalized.
+        logw = (torch.log(torch.clamp(state.hyp_weights,
+                                      min=cfg.hyp_weight_floor))
+                - (nll_k - torch.min(nll_k)) / cfg.hyp_nll_temp)
+        w_hyp = floor_and_normalize_weights(torch.exp(logw - torch.max(logw)),
+                                            cfg.hyp_weight_floor)
+        certs["hyp.nll_spread"] = torch.max(nll_k) - torch.min(nll_k)
+    else:
+        w_hyp = floor_and_normalize_weights(state.hyp_weights,
+                                            cfg.hyp_weight_floor)
+    dpsi_q = torch.einsum("k,kabc->abc", w_hyp, dpsi_q_k)
+    dnu_q = torch.einsum("k,ka->a", w_hyp, dnu_q_k)
+    xi_t = torch.clamp(dz_odom0[:3], -cfg.innovation_clip_trans,
                        cfg.innovation_clip_trans)
-    xi_r = torch.clamp(dz_odom[3:6], -cfg.innovation_clip_rot,
+    xi_r = torch.clamp(dz_odom0[3:6], -cfg.innovation_clip_rot,
                        cfg.innovation_clip_rot)
     dpsi_q[0, :3, :3] += cfg.innovation_q_trans * torch.outer(xi_t, xi_t)
     dpsi_q[1, :3, :3] += cfg.innovation_q_rot * torch.outer(xi_r, xi_r)
 
-    bel_fin, z_drift, c = recompose_ops.anchor_drift_update(
-        bel_rec, z_lin_new, m0=cfg.anchor_drift_m0, r0=cfg.anchor_drift_r0,
-        eps_lift=cfg.eps_lift, dz=dz_new)
-    certs.update(c)
+    drift = functools.partial(
+        recompose_ops.anchor_drift_update, m0=cfg.anchor_drift_m0,
+        r0=cfg.anchor_drift_r0, eps_lift=cfg.eps_lift)
+    bel_fin_k, z_drift_k, c = torch.func.vmap(
+        lambda b, z, d: drift(b, z, dz=d))(bel_rec_k, z_lin_new_k, dz_new_k)
+    certs.update(_vmap_certs(c))
+    h_bar_in, z_bar_in, means_in = bel_fin_k.h, z_lin_new_k, z_drift_k
+    if mht:
+        # Carry each hypothesis into hypothesis 0's chart before the
+        # average (first order: z' = z + Log(X_a0^-1 X_ak)).
+        anchors = bel_fin_k.anchor
+        xi_k = torch.func.vmap(lambda a: se3.pose7_minus(a, anchors[0]))(
+            anchors)
+        e_k = torch.cat([xi_k, torch.zeros_like(z_lin_new_k[:, 6:])], 1)
+        h_bar_in = h_bar_in + torch.einsum("kij,kj->ki", bel_fin_k.L, e_k)
+        z_bar_in, means_in = z_bar_in + e_k, means_in + e_k
+        certs["hyp.anchor_spread"] = torch.sum(xi_k ** 2)
     L_bar, h_bar, _, w_norm, c = hyp_ops.barycenter_projection(
-        bel_fin.L[None], bel_fin.h[None], z_lin_new[None], w_hyp,
+        bel_fin_k.L, h_bar_in, z_bar_in, w_hyp,
         weight_floor=cfg.hyp_weight_floor, eps_psd=cfg.eps_psd,
-        eps_lift=cfg.eps_lift, means=z_drift[None])
+        eps_lift=cfg.eps_lift, means=means_in)
     certs.update(c)
-    pose_out = world_pose(Belief(L=L_bar, h=h_bar, anchor=bel_fin.anchor),
-                          cfg.eps_lift)
+    pose_out = world_pose(Belief(L=L_bar, h=h_bar,
+                                 anchor=bel_fin_k.anchor[0]), cfg.eps_lift)
     proc_noise, c = noise_ops.process_apply_suffstats(
         state.process_noise, dpsi_q, dnu_q, cfg)
     certs.update(c)
     meas_noise, c = noise_ops.measurement_apply_suffstats(
         state.meas_noise, torch.stack([dpsi_gyro, dpsi_accel, dpsi_lidar]),
-        torch.ones((3,), dtype=dt, device=mu_pred.device), cfg)
+        torch.ones((3,), dtype=dt, device=mu_pred_k.device), cfg)
     certs.update(c)
-    Sigma_next, _ = spd_inverse_lifted(bel_fin.L[None], cfg.eps_lift)
+    Sigma_next, _ = spd_inverse_lifted(bel_fin_k.L, cfg.eps_lift)
     Sigma_next = 0.5 * (Sigma_next + Sigma_next.transpose(-1, -2))
-    mu_next = torch.einsum("kij,kj->ki", Sigma_next, bel_fin.h[None])
-    pose_prev7_next = se3.pose7_plus(bel_fin.anchor, mu_next[0, IDX_POSE])
-    return (bel_fin, bel_rec.anchor, pose_out, w_norm, proc_noise,
+    mu_next = torch.einsum("kij,kj->ki", Sigma_next, bel_fin_k.h)
+    pose_prev7_next = se3.pose7_plus(bel_fin_k.anchor[0],
+                                     mu_next[0, IDX_POSE])
+    return (bel_fin_k, bel_rec_k.anchor[0], pose_out, w_norm, proc_noise,
             meas_noise, mu_next, Sigma_next, pose_prev7_next, certs)
 
 
 def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
                cfg: GCConfig):
-    """One scan against the chunk's resident view (either belief branch)."""
+    """One scan against the chunk's resident view (either belief branch,
+    either view)."""
     dt = cfg.torch_dtype
     certs: dict = dict(ctx.certs)
     seq = state.scan_seq
@@ -549,11 +635,12 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         time_warp_sigma_frac=cfg.time_warp_sigma_frac, eps_mass=cfg.eps_mass)
     certs.update(c)
 
-    # ---- steps 2 + 6: predict + IMU/odometry evidence (hypothesis 0) ---------
-    bel_prev0 = Belief(L=state.belief.L[0], h=state.belief.h[0],
-                       anchor=state.belief.anchor[0])
+    # ---- steps 2 + 6: predict + IMU/odometry evidence per hypothesis -------
     first_scan = state.scan_seq == 0
-    if cfg.belief_kernel:
+    kernels = belief_kernels.use_belief_kernels(cfg)
+    if kernels:
+        bel_prev0 = Belief(L=state.belief.L[0], h=state.belief.h[0],
+                           anchor=state.belief.anchor[0])
         # K1: the whole per-pose chain in one kernel; the reductions over
         # the IMU window stay outside (the resultant's masked median, the
         # accel moments). K1 takes the previous rotation from R_prev.
@@ -587,19 +674,21 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
                                                        + cfg.eps_mass)
         bel_pred = Belief(L=L_pred, h=h_pred, anchor=bel_prev0.anchor)
     else:
-        bel_pred, mu_pred, L_io, h_io, z_lin, dz_odom, kc = \
-            _predict_and_evidence(
-                bel_prev0, mu_prev0, state.Sigma[0], scan=scan, cfg=cfg, Q=Q,
-                dt_sec=dt_sec, motion=motion, sigma_g=sigma_g,
-                sigma_a=sigma_a, dt_int=dt_int, dt_imu=dt_imu, w_int=w_int,
-                accel_bias=accel_bias, gravity_w=gravity_w,
-                omega_avg=omega_avg, pre_int=pre_int,
-                odom_prev6=state.odom_prev6, first_scan=first_scan)
-        certs.update(kc)
+        pe = functools.partial(
+            _predict_and_evidence, scan=scan, cfg=cfg, Q=Q, dt_sec=dt_sec,
+            motion=motion, sigma_g=sigma_g, sigma_a=sigma_a, dt_int=dt_int,
+            dt_imu=dt_imu, w_int=w_int, accel_bias=accel_bias,
+            gravity_w=gravity_w, omega_avg=omega_avg, pre_int=pre_int,
+            odom_prev6=state.odom_prev6, first_scan=first_scan)
+        bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k, dz_odom_k, kc = \
+            torch.func.vmap(pe)(state.belief, state.mu, state.Sigma)
+        certs.update(_vmap_certs(kc))
+        bel_pred = Belief(*[x[0] for x in bel_pred_k])
+        z_lin, dz_odom = z_lin_k[0], dz_odom_k[0]
         R_zlin = None
         z_lin_pose = se3.pose7_plus(bel_pred.anchor, z_lin[IDX_POSE])
         dpsi_accel = imu_ops.accel_iw_suffstats(
-            world_pose_from_increment(bel_pred, mu_pred)[3:6],
+            world_pose_from_increment(bel_pred, mu_pred_k[0])[3:6],
             scan.imu_accel, w_int, accel_bias, gravity_w, dt_imu,
             eps_mass=cfg.eps_mass, eps_psd=cfg.eps_psd)
 
@@ -633,8 +722,8 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
     dpsi_lidar = noise_ops.lidar_iw_suffstats(
         r_lidar / row_m[:, None], assoc.row_masses, cfg.eps_mass, cfg.eps_psd)
 
-    # ---- steps 9-15 (hypothesis 0) + IW apply --------------------------------
-    if cfg.belief_kernel:
+    # ---- steps 9-15 + IW apply --------------------------------------------
+    if kernels:
         # K2: the scalar tail off one factorization. cond feeds a cert and
         # the trust alpha; it is computed outside on the untempered evidence.
         cond_p6 = fusion_ops.pose6_conditioning(
@@ -650,18 +739,18 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
             certs["ot.total_cost"], pe_certs[_PE_GRAV_PROJ], cond_p6)
         certs["fusion.cond_pose6"] = cond_p6
         certs["__packed__:tail"] = tail_certs
-        bel_fin = Belief(L=L_fin, h=h_fin, anchor=anchor_fin)
+        bel_fin = Belief(L=L_fin[None], h=h_fin[None], anchor=anchor_fin[None])
         mu_next, Sigma_next = mu_next0[None], Sigma_next0[None]
         w_norm = torch.ones((1,), dtype=dt, device=ref.device)
         proc_noise = noise_ops.ProcessNoiseIW(nu=pnu, psi=ppsi)
         meas_noise = noise_ops.MeasurementNoiseIW(nu=mnu, psi=mpsi)
     else:
         (bel_fin, z_t, pose_out, w_norm, proc_noise, meas_noise, mu_next,
-         Sigma_next, pose_prev7_next, kc) = _xla_tail(
-            state, cfg, bel_pred, mu_pred, L_io, h_io, z_lin, dz_odom, L_vis,
-            h_vis_rel, dpsi_gyro, dpsi_accel, dpsi_lidar,
-            ess_imu=pre_int["ess"], ot_ess=certs["ot.ess"],
-            ot_cost=certs["ot.total_cost"],
+         Sigma_next, pose_prev7_next, kc) = _bank_tail(
+            state, cfg, bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k,
+            dz_odom, kc["odom_pose.nll_proxy"], L_vis, h_vis_rel, dpsi_gyro,
+            dpsi_accel, dpsi_lidar, ess_imu=pre_int["ess"],
+            ot_ess=certs["ot.ess"], ot_cost=certs["ot.total_cost"],
             grav_proj=certs["imu_grav.psd_projection"])
         certs.update(kc)
         R_prev_next = se3.quat_to_R(pose_prev7_next[3:7])
@@ -688,15 +777,20 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
             nov, min=cfg.camera_insert_novelty_floor), nov)
     meas_keys = tile_keys_from_xyz(mb.mean_positions(batch_t, cfg.eps_lift),
                                    cfg.h_tile)
-    sff, c, page_stats = atlas_ops.ff_insert(
-        sff, batch_t, nov, meas_keys, ctx.active_keys, seq, cfg,
-        resident_pages=ctx.put_pages, page_stats=ctx.page_stats)
+    if cfg.view_page:
+        sff, c, page_stats = atlas_ops.ff_insert(
+            sff, batch_t, nov, meas_keys, ctx.active_keys, seq, cfg,
+            resident_pages=ctx.put_pages, page_stats=ctx.page_stats)
+        ctx = ctx._replace(page_stats=page_stats)
+    else:
+        sff, c = atlas_ops.ff_insert(sff, batch_t, nov, meas_keys,
+                                     ctx.active_keys, seq, cfg,
+                                     evict_exclude=ctx.put_idx)
     certs.update(c)
-    ctx = ctx._replace(rows=rows, page_stats=page_stats)
+    ctx = ctx._replace(rows=rows)
 
     new_state = state._replace(
-        belief=Belief(L=bel_fin.L[None], h=bel_fin.h[None],
-                      anchor=bel_fin.anchor[None]),
+        belief=bel_fin,
         mu=mu_next, Sigma=Sigma_next, pose_prev7=pose_prev7_next,
         R_prev=R_prev_next, hyp_weights=w_norm,
         process_noise=proc_noise, meas_noise=meas_noise, slabs=sff,
@@ -720,7 +814,6 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
     fields and certs {name: (T,)})."""
     dev = resolve_device(device)
     _on(dev, state.slabs.ff, scans.points)
-    require_slice(cfg)
     T = scans.scan_start.shape[0]
     R = max(1, int(cfg.view_refresh_every))
     while T % R != 0:

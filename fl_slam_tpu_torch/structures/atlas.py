@@ -1,11 +1,14 @@
-"""Atlas map as one fixed-shape device structure (port of the paged
-ff / compact API of ``fl_slam_tpu/structures/atlas.py``).
+"""Atlas map as one fixed-shape device structure (port of
+``fl_slam_tpu/structures/atlas.py``).
 
 A fixed pool of ``n_tiles_pool`` tile slabs of ``m_tile`` primitive slots,
 stored as one fused field block ``fdata (P, CF, M)`` plus an int64 tile-key
 directory. The active tiles' slabs are resident in the scan carry in the
-col-major form ``ff (CF, S*M)``; the paged view, compact fuse / merge and
-the paged insert run on it.
+col-major form ``ff (CF, S*M)``; the view (paged, or per slot with
+``view_page=0``), compact fuse / merge and the insert run on it. The
+row-major slab API (``Slabs (S, CF, M)``, the ``slab_*`` ops and the
+atlas-level wrappers) is the reference's standalone form of the same ops:
+tests and one-off use, not the per-scan path.
 
 Field layout along CF (fixed offsets; CF = 19 + 3B rounded up to 8):
   rows [0, 6) lam6 | [6, 9) theta | [9, 12) rgb_acc | 12 weights |
@@ -14,9 +17,11 @@ Field layout along CF (fixed offsets; CF = 19 + 3B rounded up to 8):
 
 In-place updates: the pool and the resident slabs belong to the pipeline
 state, and the scan update writes them in place where the reference's
-functional update would copy them (the slab exchange, the page write-back,
-the insert scatter). Out-of-range targets of a "drop" scatter are dropped,
-as the reference's ``mode="drop"`` scatters drop them.
+functional update would copy them (the slab exchange, the view
+write-back, the insert scatter). The row-major wrappers convert with a
+copy, so they leave their input slabs as they were. Out-of-range targets of
+a "drop" scatter are dropped, as the reference's ``mode="drop"`` scatters
+drop them.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 
 from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.core.linalg import (det3x3, inv3x3, mat33_to_sym6,
-                                           sym6_to_mat33, top_k)
+                                           sym6_to_mat33, top_k,
+                                           top_k_maybe_approx)
 from fl_slam_tpu_torch.ops import surfel_kernels
 from fl_slam_tpu_torch.runtime import const
 from fl_slam_tpu_torch.structures import atlas_kernels
@@ -122,22 +128,54 @@ def empty_atlas(cfg: GCConfig, device) -> AtlasMap:
         next_prim_id=torch.zeros((), dtype=torch.int32, device=device))
 
 
+class Slabs(NamedTuple):
+    """Row-major active-tile working set: ``fdata (S, CF, M)``,
+    ``prim_ids (S, M)``."""
+
+    fdata: torch.Tensor
+    prim_ids: torch.Tensor
+    next_prim_id: torch.Tensor
+
+
+def gather_slabs(atlas: AtlasMap, slots) -> Slabs:
+    """The S active tiles' slabs, row-major (a copy)."""
+    sl = slots.to(torch.int64)
+    return Slabs(fdata=atlas.fdata[sl], prim_ids=atlas.prim_ids[sl],
+                 next_prim_id=atlas.next_prim_id)
+
+
+def scatter_slabs(atlas: AtlasMap, slots, sl: Slabs) -> AtlasMap:
+    """Write row-major slabs back to their pool slots (in place)."""
+    s = slots.to(torch.int64)
+    atlas.fdata[s] = sl.fdata
+    atlas.prim_ids[s] = sl.prim_ids
+    return atlas._replace(next_prim_id=sl.next_prim_id)
+
+
+def slabs_to_ff(sl: Slabs) -> SlabsFF:
+    """The col-major form ``ff (CF, S*M)`` of row-major slabs (a copy)."""
+    S, cf, M = sl.fdata.shape
+    ff = sl.fdata.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+    return SlabsFF(ff=ff.reshape(cf, S * M),
+                   prim_ids=sl.prim_ids.reshape(S * M).clone(),
+                   next_prim_id=sl.next_prim_id)
+
+
+def slabs_from_ff(sf: SlabsFF, S: int) -> Slabs:
+    """The row-major view ``(S, CF, M)`` of col-major slabs (no copy)."""
+    cf, SM = sf.ff.shape
+    return Slabs(fdata=sf.ff.reshape(cf, S, SM // S).transpose(0, 1),
+                 prim_ids=sf.prim_ids.reshape(S, SM // S),
+                 next_prim_id=sf.next_prim_id)
+
+
 def gather_slabs_ff(atlas: AtlasMap, slots) -> SlabsFF:
-    P, cf, M = atlas.fdata.shape
-    S = slots.shape[0]
-    ff = atlas.fdata[slots.to(torch.int64)].transpose(0, 1).reshape(cf, S * M)
-    return SlabsFF(ff=ff, prim_ids=atlas.prim_ids[slots.to(torch.int64)]
-                   .reshape(S * M), next_prim_id=atlas.next_prim_id)
+    return slabs_to_ff(gather_slabs(atlas, slots))
 
 
 def scatter_slabs_ff(atlas: AtlasMap, slots, sf: SlabsFF) -> AtlasMap:
     """Write the resident slabs back to their pool slots (in place)."""
-    P, cf, M = atlas.fdata.shape
-    S = slots.shape[0]
-    sl = slots.to(torch.int64)
-    atlas.fdata[sl] = sf.ff.reshape(cf, S, M).transpose(0, 1)
-    atlas.prim_ids[sl] = sf.prim_ids.reshape(S, M)
-    return atlas._replace(next_prim_id=sf.next_prim_id)
+    return scatter_slabs(atlas, slots, slabs_from_ff(sf, slots.shape[0]))
 
 
 def activate_tiles(atlas: AtlasMap, keys, scan_seq):
@@ -207,6 +245,110 @@ def ff_inflate_and_clear(sf: SlabsFF, fresh, scan_seq, cfg: GCConfig, *,
         "map.culled_mass": torch.sum(w_new * below.to(dt)),
     }
     return sf._replace(ff=ff * A + B), certs
+
+
+def slab_clear_fresh(sl: Slabs, fresh) -> Slabs:
+    """Clear freshly allocated slabs: weights 0, last_supported -1, valid 0
+    (standalone; the pipeline folds the clear into the dense pass)."""
+    o = _O_SCAL
+    m = fresh[:, None]
+    fd = sl.fdata.clone()
+    fd[:, o + _ROW_W] = torch.where(m, 0.0, fd[:, o + _ROW_W])
+    fd[:, o + _ROW_LS] = torch.where(m, -1.0, fd[:, o + _ROW_LS])
+    fd[:, o + _ROW_V] = torch.where(m, 0.0, fd[:, o + _ROW_V])
+    return sl._replace(fdata=fd)
+
+
+def slab_inflate_and_clear(sl: Slabs, fresh, scan_seq, cfg: GCConfig):
+    """Fresh-slab clear and recency inflation (mean-preserving) on
+    row-major slabs, as one pass ``fdata * A + B``."""
+    fd = sl.fdata
+    dt = fd.dtype
+    S, cf, M = fd.shape
+    o = _O_SCAL
+    seqf = torch.as_tensor(scan_seq, dtype=dt, device=fd.device)
+    vmask = (fd[:, o + _ROW_V] > 0.5) & ~fresh[:, None]
+    ds = torch.clamp(seqf - fd[:, o + _ROW_LS], min=0.0)
+    decay = torch.clamp(torch.exp(-cfg.recency_decay_lambda * ds),
+                        cfg.recency_min_scale, 1.0)
+    decay = torch.where(vmask, decay, 1.0)
+    row = torch.arange(cf, device=fd.device)[None, :, None]
+    is_clear = ((row == o + _ROW_W) | (row == o + _ROW_LS)
+                | (row == o + _ROW_V))
+    fr = fresh[:, None, None]
+    A = torch.where(row < 9, decay[:, None, :], 1.0)
+    A = torch.where(is_clear & fr, 0.0, A)
+    B = torch.where((row == o + _ROW_LS) & fr, -1.0,
+                    torch.zeros((), dtype=dt, device=fd.device))
+    n_valid = torch.clamp(torch.sum(vmask.to(dt)), min=1.0)
+    certs = {
+        "map.staleness_downscale_total": torch.sum((1.0 - decay) * vmask),
+        "map.staleness_strength": torch.sum((1.0 - decay) * vmask) / n_valid,
+    }
+    return sl._replace(fdata=fd * A + B), certs
+
+
+def slab_recency_inflate(sl: Slabs, scan_seq, cfg: GCConfig):
+    """Recency inflation alone (no fresh slab)."""
+    fresh = torch.zeros((sl.fdata.shape[0],), dtype=torch.bool,
+                        device=sl.fdata.device)
+    return slab_inflate_and_clear(sl, fresh, scan_seq, cfg)
+
+
+def ff_select_view_cols(sf: SlabsFF, S: int, cfg: GCConfig):
+    """Per-slot view membership (``view_page=0``): per tile, half of the
+    ``m_tile_view`` rows are the top slots by weight and half the most
+    recently created, deduplicated (a recency copy of a weight-half slot
+    is flagged and dropped on write-back). Invalid slots score a sentinel
+    rising with the slot index, in the working dtype, so the pad rows of a
+    sparse tile sit in its top slots, away from the insert's eviction
+    choices. Returns (slab_cols (V,) int32, dup (V,) bool)."""
+    ff = sf.ff
+    cf, SM = ff.shape
+    M = SM // S
+    o = _O_SCAL
+    V = cfg.m_tile_view
+    dev = ff.device
+    vmask2 = (ff[o + _ROW_V] > 0.5).reshape(S, M)
+    kw = min(V - V // 2, M)
+    kr = min(V // 2, M)
+    inv_score = (-1e30 + 1e24 * torch.arange(M, dtype=ff.dtype,
+                                             device=dev))[None, :]
+    score_w = torch.where(vmask2, ff[o + _ROW_W].reshape(S, M), inv_score)
+    score_r = torch.where(vmask2, ff[o + _ROW_CS].reshape(S, M), inv_score)
+    _, idx_w = top_k_maybe_approx(score_w, kw, cfg.approx_topk)
+    _, idx_r = top_k_maybe_approx(score_r, kr, cfg.approx_topk)
+    dup_r = torch.any(idx_r[:, :, None] == idx_w[:, None, :], 2)
+    dup = torch.cat([torch.zeros((S, kw), dtype=torch.bool, device=dev),
+                     dup_r], 1)
+    idx = torch.cat([idx_w, idx_r], 1)
+    if idx.shape[1] < V:
+        pad = V - idx.shape[1]
+        idx = torch.nn.functional.pad(idx, (0, pad))
+        dup = torch.nn.functional.pad(dup, (0, pad), value=True)
+    slab_cols = torch.arange(S, device=dev)[:, None] * M + idx
+    return slab_cols.reshape(-1).to(torch.int32), dup.reshape(-1)
+
+
+def ff_extract_view(sf: SlabsFF, S: int, cfg: GCConfig) -> MapView:
+    """Per-slot membership, one column gather, and the view derived from
+    the gathered rows."""
+    slab_cols, dup_f = ff_select_view_cols(sf, S, cfg)
+    cols = slab_cols.to(torch.int64)
+    return view_from_rows(sf.ff[:, cols].T, slab_cols, dup_f,
+                          sf.prim_ids[cols], sf.ff.shape[1], cfg)
+
+
+def slab_extract_view(sl: Slabs, cfg: GCConfig) -> MapView:
+    return ff_extract_view(slabs_to_ff(sl), sl.fdata.shape[0], cfg)
+
+
+def ff_write_view(sf: SlabsFF, view, rows) -> SlabsFF:
+    """One drop-mode column scatter of the resident view rows to their slab
+    columns ``view.put_idx`` (duplicate and pad rows point out of range);
+    in place."""
+    put_drop_(sf.ff, 1, view.put_idx, rows.T)
+    return sf
 
 
 def ff_select_view_pages(sf: SlabsFF, S: int, cfg: GCConfig):
@@ -358,6 +500,45 @@ def compact_fuse(view: MapView, batch_w: MeasurementBatch, resp,
     return rows, certs
 
 
+def ff_fuse(sf: SlabsFF, batch_w: MeasurementBatch, resp, cand_view_idx,
+            cand_valid, view_slab_idx, scan_seq, cfg: GCConfig):
+    """PoE fuse straight into the slabs (the standalone form of
+    ``compact_fuse``): the N*K contributions accumulate per view row, then
+    the V row deltas add into their slab columns (view rows of one slot add
+    up), both by the moment segment-sum (K4, no float atomics); a support
+    marker rides a spare pad row and stamps ``last_supported``. Returns
+    (sf', certs); ``sf`` is left as it was."""
+    ff = sf.ff
+    cf, SM = ff.shape
+    o = _O_SCAL
+    dt = ff.dtype
+    N, K = resp.shape
+    V = view_slab_idx.shape[0]
+    r = resp * batch_w.valid[:, None].to(dt) * cand_valid.to(dt)
+    rf = r.reshape(-1)
+    has_pad = cf > _O_ETA + batch_w.etas.shape[1] * 3
+    marker = cf - 1 if has_pad else o + _ROW_LS
+    base = _fuse_base_rows(batch_w, cf, cfg.camera_fuse_geom_scale)
+    base[:, marker] = 1.0
+    vals = (base[:, None, :] * r[:, :, None]).reshape(N * K, cf)
+    delta = surfel_kernels.moment_segment_sum(
+        vals.T.contiguous(), cand_view_idx.reshape(-1), V, site="fuse")
+    ls_prev = ff[o + _ROW_LS]
+    ff = ff + surfel_kernels.moment_segment_sum(delta, view_slab_idx, SM,
+                                                site="fuse")
+    seqf = torch.as_tensor(scan_seq, dtype=dt, device=ff.device)
+    if has_pad:
+        ff[o + _ROW_LS] = torch.where(ff[marker] > 0.0, seqf, ls_prev)
+        ff[marker] = 0.0
+    else:
+        ff[o + _ROW_LS] = torch.where(ff[o + _ROW_LS] > ls_prev, seqf,
+                                      ls_prev)
+    wk = batch_w.weights[:, None].expand(N, K).reshape(-1)
+    certs = {"map.fused_mass": torch.sum(rf * wk),
+             "map.fuse_resp_total": torch.sum(rf)}
+    return sf._replace(ff=ff), certs
+
+
 def compact_merge_reduce(rows, S: int, kw: int, cfg: GCConfig):
     """Merge-reduce on each tile's weight-half prefix of the view rows."""
     if cfg.k_merge_pairs <= 0:
@@ -483,15 +664,24 @@ def ff_page_stats(sf: SlabsFF, S: int, cfg: GCConfig, scan_seq):
 
 
 def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
-              active_keys, scan_seq, cfg: GCConfig, resident_pages,
-              page_stats):
-    """Paged insert: the top-``k_insert`` novel measurements of each active
-    tile go into the K lowest-retention slots of one non-resident page per
-    tile (the fullest page that still fits K, else the least retention).
-    With ``insert_page_dense`` the target pages are gathered and written
-    back whole (K6, the batched replay's form); otherwise the inserts are a
-    column scatter. Writes ``sf`` in place. Returns (sf, certs,
-    page_stats')."""
+              active_keys, scan_seq, cfg: GCConfig, evict_exclude=None,
+              resident_pages=None, page_stats=None):
+    """Insert the top-``k_insert`` novel measurements of each active tile
+    (insert weight = novelty x measurement weight; proposals below the cull
+    threshold are skipped). Writes ``sf`` in place.
+
+    Per slot (``resident_pages`` None): each tile evicts its K
+    lowest-retention slots (invalid first, then weight x exp(-lambda x
+    staleness)); a proposal whose slot is in ``evict_exclude`` (the
+    resident view's columns) is dropped. Returns (sf, certs).
+
+    Paged (``resident_pages``, the flat resident pages): the K
+    lowest-retention slots of one non-resident page per tile (the fullest
+    page that still fits K, else the least retention), from ``page_stats``
+    (computed here when None). With ``insert_page_dense`` the target pages
+    are gathered and written back whole (K6, the batched replay's form);
+    otherwise the inserts are a column scatter. Returns (sf, certs,
+    page_stats') when ``page_stats`` is given, else (sf, certs)."""
     ff = sf.ff
     cf, SM = ff.shape
     S = active_keys.shape[0]
@@ -500,11 +690,7 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
     dt = ff.dtype
     dev = ff.device
     K = cfg.k_insert
-    P = cfg.view_page
-    npg = M // P
-    assert npg * P > cfg.m_tile_view, (M, cfg.m_tile_view)
-    assert K <= P, (K, P)
-    seqf = scan_seq.to(dt)
+    seqf = torch.as_tensor(scan_seq, dtype=dt, device=dev)
 
     score = torch.where(batch_w.valid, novelty * batch_w.weights, -1e30)
     in_tile = meas_keys[None, :] == active_keys[:, None]
@@ -512,30 +698,52 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
     top_score, ins_idx = top_k(score_t, K)
     do_insert = torch.gather(in_tile, 1, ins_idx) & (top_score > -1e20)
 
-    inv_cnt, ret_pg = page_stats
-    pscore = torch.where(inv_cnt >= K, inv_cnt, 1e8 + ret_pg)
-    pages_glob = (torch.arange(S, device=dev)[:, None] * npg
-                  + torch.arange(npg, device=dev)[None, :])
-    excl = torch.any(pages_glob[:, :, None] == resident_pages[None, None, :],
-                     -1)
-    pscore = torch.where(excl, float("inf"), pscore)
-    tgt_page = torch.argmin(pscore, 1)
-    offs = torch.arange(S, device=dev) * M + tgt_page * P
-    cols = (offs[:, None] + torch.arange(P, device=dev)[None, :]).reshape(-1)
-    if cfg.insert_page_dense:
-        page = atlas_kernels.page_gather_ff(ff, offs, P)       # K6
+    paged = resident_pages is not None
+    if paged:
+        P = cfg.view_page
+        npg = M // P
+        assert npg * P > cfg.m_tile_view, (M, cfg.m_tile_view)
+        assert K <= P, (K, P)
+        returns_stats = page_stats is not None
+        inv_cnt, ret_pg = (page_stats if returns_stats
+                           else ff_page_stats(sf, S, cfg, scan_seq))
+        pscore = torch.where(inv_cnt >= K, inv_cnt, 1e8 + ret_pg)
+        pages_glob = (torch.arange(S, device=dev)[:, None] * npg
+                      + torch.arange(npg, device=dev)[None, :])
+        excl = torch.any(pages_glob[:, :, None]
+                         == resident_pages[None, None, :], -1)
+        pscore = torch.where(excl, float("inf"), pscore)
+        tgt_page = torch.argmin(pscore, 1)
+        offs = torch.arange(S, device=dev) * M + tgt_page * P
+        cols = (offs[:, None]
+                + torch.arange(P, device=dev)[None, :]).reshape(-1)
+        if cfg.insert_page_dense:
+            page = atlas_kernels.page_gather_ff(ff, offs, P)   # K6
+        else:
+            page = ff[:, cols]
+        w_in = page[o + _ROW_W].reshape(S, P)
+        ls_in = page[o + _ROW_LS].reshape(S, P)
+        v_in = page[o + _ROW_V].reshape(S, P) > 0.5
+        ret_in = torch.where(v_in, w_in * torch.exp(
+            -cfg.recency_decay_lambda * torch.clamp(seqf - ls_in, min=0.0)),
+            -1.0)
+        _, slot_in = top_k(-ret_in, K)
+        evict_slot = tgt_page[:, None] * P + slot_in
     else:
-        page = ff[:, cols]
-    w_in = page[o + _ROW_W].reshape(S, P)
-    ls_in = page[o + _ROW_LS].reshape(S, P)
-    v_in = page[o + _ROW_V].reshape(S, P) > 0.5
-    ret_in = torch.where(v_in, w_in * torch.exp(
-        -cfg.recency_decay_lambda * torch.clamp(seqf - ls_in, min=0.0)),
-        -1.0)
-    _, slot_in = top_k(-ret_in, K)
-    evict_slot = tgt_page[:, None] * P + slot_in
+        vmask = ff[o + _ROW_V].reshape(S, M) > 0.5
+        stale = torch.clamp(seqf - ff[o + _ROW_LS].reshape(S, M), min=0.0)
+        retention = torch.where(vmask, ff[o + _ROW_W].reshape(S, M)
+                                * torch.exp(-cfg.recency_decay_lambda
+                                            * stale), -1.0)
+        _, evict_slot = top_k_maybe_approx(-retention, K, cfg.approx_topk)
 
+    tgt = (torch.arange(S, device=dev)[:, None] * M
+           + evict_slot).reshape(-1)
     do_f = do_insert.reshape(-1)
+    if evict_exclude is not None:
+        # A resident view column is never evicted: the chunk's write-back
+        # would clobber the insert. The proposal is dropped, not re-slotted.
+        do_f = do_f & ~torch.any(tgt[:, None] == evict_exclude[None, :], 1)
     gi = ins_idx.reshape(-1)
     w_new = novelty[gi] * batch_w.weights[gi]
     do_f = do_f & (w_new >= cfg.cull_weight_threshold)
@@ -549,7 +757,7 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
     sub[:, o + _ROW_CS] = seqf
     sub[:, o + _ROW_LS] = seqf
     sub[:, o + _ROW_V] = 1.0
-    if cfg.insert_page_dense:
+    if paged and cfg.insert_page_dense:
         # Every eviction slot lives in the one gathered target page of its
         # tile: merge the S*K proposals into the (CF, S, P) page and write
         # the same contiguous page columns back (K6), instead of a scattered
@@ -566,8 +774,6 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
         sf.prim_ids.index_put_((cols,), torch.where(hit, id_sel, pp)
                                .reshape(-1).to(torch.int32))
     else:
-        tgt = (torch.arange(S, device=dev)[:, None] * M
-               + evict_slot).reshape(-1)
         tgt_put = torch.where(do_f, tgt, SM)
         put_drop_(ff, 1, tgt_put, sub.T)
         put_drop_(sf.prim_ids, 0, tgt_put, new_ids)
@@ -583,6 +789,8 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
             batch_w.valid, novelty * batch_w.weights, 0.0)),
         "map.insert.effect_realized": ins_mass,
     }
+    if not (paged and returns_stats):
+        return sf, certs
     do_sk = do_f.reshape(S, K)
     was_invalid = torch.gather(~v_in, 1, slot_in)
     filled = torch.sum((do_sk & was_invalid).to(dt), 1)
@@ -595,8 +803,135 @@ def ff_insert(sf: SlabsFF, batch_w: MeasurementBatch, novelty, meas_keys,
     return sf, certs, (inv_cnt, ret_pg)
 
 
+def ff_cull(sf: SlabsFF, cfg: GCConfig):
+    """Invalidate primitives below the weight threshold (standalone; the
+    pipeline folds the cull into the dense pass). Returns (sf', certs)."""
+    o = _O_SCAL
+    dt = sf.ff.dtype
+    w, v = sf.ff[o + _ROW_W], sf.ff[o + _ROW_V]
+    below = (v > 0.5) & (w < cfg.cull_weight_threshold)
+    certs = {"map.culled_count": torch.sum(below.to(dt)),
+             "map.culled_mass": torch.sum(w * below.to(dt))}
+    ff = sf.ff.clone()
+    ff[o + _ROW_V] = torch.where(below, 0.0, v)
+    ff[o + _ROW_W] = torch.where(below, 0.0, w)
+    return sf._replace(ff=ff), certs
+
+
+def ff_forget(sf: SlabsFF, cfg: GCConfig) -> SlabsFF:
+    """weights x ``forgetting_factor`` (standalone)."""
+    ff = sf.ff.clone()
+    ff[_O_SCAL + _ROW_W] *= cfg.forgetting_factor
+    return sf._replace(ff=ff)
+
+
+def ff_merge_reduce(sf: SlabsFF, S: int, cfg: GCConfig):
+    """Greedy Bhattacharyya merge of up to ``k_merge_pairs`` pairs per tile
+    on each tile's top-``merge_max_tile`` valid slots by weight, gathered
+    with one column gather and written back with one column scatter
+    (standalone; the pipeline merges the view rows). Returns (sf', certs)."""
+    if cfg.k_merge_pairs <= 0:
+        return sf, {"map.merged_pairs": sf.ff.new_zeros(())}
+    ff = sf.ff
+    cf, SM = ff.shape
+    M = SM // S
+    o = _O_SCAL
+    Sm = min(cfg.merge_max_tile, M)
+    sc = torch.where(ff[o + _ROW_V].reshape(S, M) > 0.5,
+                     ff[o + _ROW_W].reshape(S, M), float("-inf"))
+    _, subs = top_k_maybe_approx(sc, Sm, cfg.approx_topk)
+    gidx = (torch.arange(S, device=ff.device)[:, None] * M
+            + subs).reshape(-1)
+    outs, n_merged = _merge_tiles(ff[:, gidx].T.reshape(S, Sm, cf), cfg)
+    ff = ff.clone()
+    ff[:, gidx] = outs.reshape(S * Sm, cf).T
+    return sf._replace(ff=ff), {
+        "map.merged_pairs": torch.sum(n_merged).to(ff.dtype)}
+
+
 def total_count(atlas: AtlasMap):
     return torch.sum(field_valid(atlas.fdata))
+
+
+# ---------------------------------------------------------------------------
+# Row-major slab wrappers around the ff ops and the atlas-level wrappers
+# (tests and one-off use; each converts with a copy).
+# ---------------------------------------------------------------------------
+
+def slab_fuse(sl: Slabs, batch_w, resp, cand_view_idx, cand_valid,
+              view_slab_idx, scan_seq, cfg: GCConfig):
+    sf, certs = ff_fuse(slabs_to_ff(sl), batch_w, resp, cand_view_idx,
+                        cand_valid, view_slab_idx, scan_seq, cfg)
+    return slabs_from_ff(sf, sl.fdata.shape[0]), certs
+
+
+def slab_insert(sl: Slabs, batch_w, novelty, meas_keys, active_keys,
+                scan_seq, cfg: GCConfig):
+    sf, certs = ff_insert(slabs_to_ff(sl), batch_w, novelty, meas_keys,
+                          active_keys, scan_seq, cfg)
+    return slabs_from_ff(sf, sl.fdata.shape[0]), certs
+
+
+def slab_cull(sl: Slabs, cfg: GCConfig):
+    sf, certs = ff_cull(slabs_to_ff(sl), cfg)
+    return slabs_from_ff(sf, sl.fdata.shape[0]), certs
+
+
+def slab_forget(sl: Slabs, cfg: GCConfig) -> Slabs:
+    return slabs_from_ff(ff_forget(slabs_to_ff(sl), cfg), sl.fdata.shape[0])
+
+
+def slab_merge_reduce(sl: Slabs, cfg: GCConfig):
+    sf, certs = ff_merge_reduce(slabs_to_ff(sl), sl.fdata.shape[0], cfg)
+    return slabs_from_ff(sf, sl.fdata.shape[0]), certs
+
+
+def recency_inflate(atlas: AtlasMap, slots, scan_seq, cfg: GCConfig):
+    sl, certs = slab_recency_inflate(gather_slabs(atlas, slots), scan_seq,
+                                     cfg)
+    return scatter_slabs(atlas, slots, sl), certs
+
+
+def extract_view(atlas: AtlasMap, slots, cfg: GCConfig) -> MapView:
+    return slab_extract_view(gather_slabs(atlas, slots), cfg)
+
+
+def fuse(atlas: AtlasMap, batch_w, resp, cand_view_idx, cand_valid,
+         view_slab_idx, scan_seq, cfg: GCConfig, slots=None):
+    assert slots is not None, "fuse needs the active slots"
+    sl, certs = slab_fuse(gather_slabs(atlas, slots), batch_w, resp,
+                          cand_view_idx, cand_valid, view_slab_idx, scan_seq,
+                          cfg)
+    return scatter_slabs(atlas, slots, sl), certs
+
+
+def insert(atlas: AtlasMap, batch_w, novelty, meas_keys, active_keys, slots,
+           scan_seq, cfg: GCConfig):
+    sl, certs = slab_insert(gather_slabs(atlas, slots), batch_w, novelty,
+                            meas_keys, active_keys, scan_seq, cfg)
+    return scatter_slabs(atlas, slots, sl), certs
+
+
+def cull(atlas: AtlasMap, slots, cfg: GCConfig):
+    sl, certs = slab_cull(gather_slabs(atlas, slots), cfg)
+    return scatter_slabs(atlas, slots, sl), certs
+
+
+def forget(atlas: AtlasMap, slots, cfg: GCConfig) -> AtlasMap:
+    return scatter_slabs(atlas, slots,
+                         slab_forget(gather_slabs(atlas, slots), cfg))
+
+
+def merge_reduce(atlas: AtlasMap, slots, cfg: GCConfig):
+    sl, certs = slab_merge_reduce(gather_slabs(atlas, slots), cfg)
+    return scatter_slabs(atlas, slots, sl), certs
+
+
+def decode_positions(atlas: AtlasMap, eps_lift: float = 1e-9):
+    """World positions (P, M, 3) of every slot (invalid slots undefined)."""
+    return torch.einsum("pmij,pmj->pmi",
+                        inv3x3(dense_Lambdas(atlas.fdata), eps_lift),
+                        dense_thetas(atlas.fdata))
 
 
 # ---------------------------------------------------------------------------

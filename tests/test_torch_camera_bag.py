@@ -34,11 +34,17 @@ from fl_slam_tpu_torch import convert
 from fl_slam_tpu_torch import pipeline as tp
 from fl_slam_tpu_torch.camera import feature_cache as tcache
 from fl_slam_tpu_torch.config import GCConfig as TCfg
-from fl_slam_tpu_torch.eval import run_eval
 from fl_slam_tpu_torch.io import kimera, rosbag
 
 N_SCANS, SEG = 6, 4
 OVER = dict(k_hyp=1, view_page=64)
+# The port's earlier CPU slice config (one hypothesis, the paged view,
+# chunks of 2 scans, the op-by-op belief branch), held to the JAX package
+# under the same config.
+SMALL_SLICE = dict(k_hyp=1, view_page=64, view_refresh_every=2,
+                   merge_at_chunk=True, approx_topk=True, select_bf16=True,
+                   surfel_moment_kernel=True, fuse_moment_kernel=True,
+                   belief_kernel=False, camera_fuse_geom_scale=0.0)
 CAM_FIELDS = ("cam_Lambdas", "cam_thetas", "cam_etas", "cam_weights",
               "cam_valid", "cam_colors")
 
@@ -285,7 +291,7 @@ def test_camera_bag_replay_f32_matches_reference(cam_bag):
     its staging against the JAX replay of the reference's (1e-3)."""
     bag = cam_bag[0][0]
     tcal, jcal = _calibs(bag)
-    over = dict(run_eval.SMALL_SLICE, dtype="float32", view_refresh_every=3)
+    over = dict(SMALL_SLICE, dtype="float32", view_refresh_every=3)
     tc, jc = TCfg.small(**over), JCfg.small(**over)
     recs = rosbag.load_scan_records(bag, kimera.KIMERA_TOPICS, tc,
                                     **_cam_kw(tcal, rosbag))

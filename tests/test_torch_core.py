@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import fl_slam_tpu.config as jcfg
@@ -69,29 +70,51 @@ def test_config_copy_matches_reference(make):
         assert getattr(jcfg, name) == getattr(tcfg, name)
 
 
-@pytest.mark.parametrize("override", [
-    dict(k_hyp=4), dict(surfel_moment_kernel=False), dict(view_page=0),
-    dict(slab_dma_kernel=False), dict(fuse_moment_kernel=False),
-    dict(sinkhorn_kernel=False)])
-def test_require_slice_raises_for_unported_switches(override):
-    tcfg.require_slice(tcfg.GCConfig.small(**SLICE))
-    tcfg.require_slice(tcfg.GCConfig.tpu(belief_kernel=False))
-    with pytest.raises(NotImplementedError, match="slice"):
-        tcfg.require_slice(tcfg.GCConfig.small(**{**SLICE, **override}))
+# Shape budgets small enough for an initial state on the CPU; the switches
+# and the dtype stay the production config's.
+_SMALL_SHAPES = dict(m_tile=256, n_tiles_pool=8, m_tile_view=128,
+                     view_page=64)
 
 
-@pytest.mark.parametrize("override", [
-    dict(), dict(belief_kernel=False), dict(odom_pose_relative=True),
-    dict(belief_kernel=False, odom_pose_relative=True),
-    dict(insert_page_dense=True), dict(select_kernel=True),
-    dict(camera_insert_novelty_floor=0.1)])
-def test_require_slice_accepts_the_production_config(override):
-    """``GCConfig.tpu()`` itself runs: the belief kernels and the relative
-    odometry factor are ported, on both belief branches, and so are the
-    dense-page insert of the batched replay, the fused selection K9 and the
-    camera-insert novelty floor."""
-    cfg = tcfg.GCConfig.tpu(**override)
-    assert tcfg.require_slice(cfg) is cfg
+@pytest.mark.parametrize("base,override", [
+    ("slice", dict(k_hyp=4)), ("slice", dict(surfel_moment_kernel=False)),
+    ("slice", dict(view_page=0)), ("slice", dict(slab_dma_kernel=False)),
+    ("slice", dict(fuse_moment_kernel=False)),
+    ("slice", dict(sinkhorn_kernel=False)),
+    ("tpu", dict()), ("tpu", dict(belief_kernel=False)),
+    ("tpu", dict(odom_pose_relative=True)),
+    ("tpu", dict(belief_kernel=False, odom_pose_relative=True)),
+    ("tpu", dict(insert_page_dense=True)), ("tpu", dict(select_kernel=True)),
+    ("tpu", dict(camera_insert_novelty_floor=0.1))])
+def test_init_state_matches_reference(base, override):
+    """Every configuration runs (no switch is refused): the port's initial
+    state equals the JAX package's in shapes and values, the bank of K
+    included, for the earlier slice's config with each switch the port
+    once refused, and for ``GCConfig.tpu()`` with each production variant
+    (at small shape budgets)."""
+    from fl_slam_tpu import pipeline as jp
+    from fl_slam_tpu_torch import convert, pipeline as tp
+
+    def build(m):
+        if base == "slice":
+            return m.GCConfig.small(**{**SLICE, **override})
+        return m.GCConfig.tpu(**{**_SMALL_SHAPES, **override})
+
+    jc, tc = build(jcfg), build(tcfg)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    anchor = np.array([1.0, -2.0, 0.3, 0.01, -0.02, 0.4])
+    want = jp.init_state(jc, anchor0=jnp.asarray(anchor, jc.jdtype), t0=5.0)
+    got = convert.state_to_numpy(tp.init_state(tc, anchor0=anchor, t0=5.0,
+                                               device="cpu"))
+    assert got.belief.L.shape == (tc.k_hyp, 22, 22)
+    for name in jp.PipelineState._fields:
+        for g, w in zip(jax.tree.leaves(getattr(got, name)),
+                        jax.tree.leaves(getattr(want, name))):
+            w = np.asarray(w)
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            np.testing.assert_allclose(g, w, rtol=1e-6 if w.dtype ==
+                                       np.float32 else RTOL, atol=ATOL,
+                                       err_msg=name)
 
 
 def test_validate_matches_reference():

@@ -5,9 +5,12 @@ on) and on synthetic data with the camera, the accuracy tool and the bench,
 and the refusal of every new entry point to run without a card unless
 asked for the CPU.
 
-Config: ``eval.run_eval.small_config()`` (``GCConfig.small`` with the
-slice's switches, chunks of R = 2 scans, f64, the op-by-op belief branch)
-on both sides. Every JAX replay here is the JAX ``replay_segments`` over
+Config: ``SMALL_SLICE`` below (``GCConfig.small`` with one hypothesis,
+the paged view, chunks of R = 2 scans, f64, the op-by-op belief branch),
+given to the entry points as ``key=value`` overrides, on both sides; and
+``run_eval --small`` itself, ``GCConfig.small()`` unmodified (the bank of
+K = 4, the per-slot view), against the JAX package's replay under the same
+config. Every JAX replay here is the JAX ``replay_segments`` over
 segments of 2 scans, on one compiled program; at chunk-aligned boundaries
 it equals the JAX monolithic replay. Tolerances are the pipeline tests'
 (``tests/test_torch_pipeline.py``): f64 poses 1e-8 absolute, certs 1e-9
@@ -41,11 +44,16 @@ from fl_slam_tpu_torch.io import synthetic as tsyn
 from fl_slam_tpu_torch.structures.atlas import empty_atlas
 
 SEG = 2
+SMALL_SLICE = dict(k_hyp=1, view_page=64, view_refresh_every=2,
+                   merge_at_chunk=True, approx_topk=True, select_bf16=True,
+                   surfel_moment_kernel=True, fuse_moment_kernel=True,
+                   belief_kernel=False, camera_fuse_geom_scale=0.0)
+SMALL_ARGS = [f"{k}={v}" for k, v in SMALL_SLICE.items()]
 
 
 @pytest.fixture(scope="module")
 def cfgs():
-    return run_eval.small_config(), JCfg.small(**run_eval.SMALL_SLICE)
+    return TCfg.small(**SMALL_SLICE), JCfg.small(**SMALL_SLICE)
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +107,7 @@ def port_runs(bag, tmp_path_factory):
     bag_dir, gt = bag
     out = tmp_path_factory.mktemp("eval")
     args = ["--bag", bag_dir, "--profile", "kimera", "--gt", gt, "--cpu",
-            "--small"]
+            "--small"] + SMALL_ARGS
     one = run_eval.main(["--out", str(out / "one")] + args)
     streamed = run_eval.main(["--out", str(out / "streamed"), "--seg-len",
                               str(SEG), "--stream"] + args)
@@ -142,6 +150,26 @@ def test_run_eval_matches_reference(port_runs, jax_bag_replay, bag):
                                                      rel=0, abs=1e-8)
 
 
+def test_run_eval_small_runs_the_reference_config(bag, tmp_path):
+    """``run_eval --small`` runs ``GCConfig.small()`` itself, as the
+    reference's ``tools/run_eval.py`` does (the bank of K = 4, the per-slot
+    view): on the fixture bag its trajectory is the JAX package's replay
+    under that config (f64, 1e-8)."""
+    bag_dir, gt = bag
+    r = run_eval.main(["--out", str(tmp_path / "e"), "--bag", bag_dir,
+                       "--profile", "kimera", "--gt", gt, "--cpu", "--small"])
+    assert all(r["gates"].values()), r["gates"]
+    jc = JCfg.small()
+    recs = jrosbag.load_scan_records(bag_dir, jkimera.KIMERA_TOPICS, jc)
+    state = jp.init_state(jc, anchor0=jnp.asarray(
+        jrosbag.smoothed_initial_anchor(recs, jc), jc.jdtype),
+        t0=float(recs["scan_start"][0]) - 0.1)
+    _, out = jp.replay(state, jrosbag.to_scan_inputs(recs, jc), jc)
+    assert r["poses"].shape == (6, 6)
+    np.testing.assert_allclose(r["poses"], np.asarray(out.pose), rtol=0,
+                               atol=1e-8)
+
+
 def test_run_eval_camera_bag_matches_reference(cam_bag, cfgs, jax_run,
                                                tmp_path):
     """``--profile kimera --calib`` turns the fixture's camera on: one shot
@@ -150,7 +178,7 @@ def test_run_eval_camera_bag_matches_reference(cam_bag, cfgs, jax_run,
     bag_dir, gt = cam_bag
     calib = os.path.join(bag_dir, "fixture_calibration.json")
     args = ["--bag", bag_dir, "--profile", "kimera", "--calib", calib,
-            "--gt", gt, "--cpu", "--small"]
+            "--gt", gt, "--cpu", "--small"] + SMALL_ARGS
     one = run_eval.main(["--out", str(tmp_path / "one")] + args)
     streamed = run_eval.main(["--out", str(tmp_path / "streamed"),
                               "--seg-len", str(SEG), "--stream"] + args)
@@ -177,7 +205,7 @@ def test_run_eval_camera_bag_matches_reference(cam_bag, cfgs, jax_run,
 def test_run_eval_synthetic_camera_matches_reference(cfgs, jax_run,
                                                      tmp_path):
     r = run_eval.main(["--out", str(tmp_path / "c"), "--cpu", "--small",
-                       "--camera", "--scans", "4", "--drift"])
+                       "--camera", "--scans", "4", "--drift"] + SMALL_ARGS)
     assert all(r["gates"].values()), r["gates"]
     jc = cfgs[1]
     ds = jsyn.simulate(jc, n_scans=4, seed=3, with_camera=True,
@@ -342,11 +370,12 @@ def test_accuracy_tool_matches_reference(cfgs, jax_run, tmp_path):
     with its native extractor)."""
     out = tmp_path / "acc.json"
     r = accuracy.main(["--cpu", "--scans", "10", "--seeds", "2", "--json",
-                       str(out)])
+                       str(out)] + SMALL_ARGS)
     assert json.loads(out.read_text())["rows"] == r["rows"]
     assert r["camera"] is False
     _accuracy_rows_match_reference(r["rows"], cfgs[1], jax_run, False)
-    r = accuracy.main(["--cpu", "--camera", "--scans", "10", "--seeds", "2"])
+    r = accuracy.main(["--cpu", "--camera", "--scans", "10", "--seeds", "2"]
+                      + SMALL_ARGS)
     assert r["camera"] is True and len(r["rows"]) == 2
     _accuracy_rows_match_reference(r["rows"], cfgs[1], jax_run, True)
     assert jfeatures.LAST_BACKEND == "native"

@@ -41,7 +41,6 @@ from fl_slam_tpu.ops import belief_kernels as jbk
 from fl_slam_tpu_torch import convert
 from fl_slam_tpu_torch import pipeline as tp
 from fl_slam_tpu_torch.config import GCConfig as TCfg
-from fl_slam_tpu_torch.config import require_slice
 from fl_slam_tpu_torch.eval import metrics as tmetrics
 from fl_slam_tpu_torch.io import synthetic as tsyn
 
@@ -292,19 +291,15 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     st = tp.init_state(cfg, device="cpu")
     scans = tsyn.to_scan_inputs(ds, cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: tp.init_state(cfg),
-                 lambda: tp.replay(st, scans, cfg),
-                 lambda: tp.process_scan(st, tp.ScanInput(
-                     *[f[0] for f in scans]), cfg),
-                 lambda: tp.flush_slabs(st),
-                 lambda: tsyn.to_scan_inputs(ds, cfg)):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            call()
-    with pytest.raises(NotImplementedError, match="bank slice"):
-        tp.init_state(TCfg.tpu(k_hyp=4), device="cpu")
-    for cfg in (TCfg.tpu(), TCfg.tpu(odom_pose_relative=True),
-                TCfg.tpu(belief_kernel=False)):
-        assert require_slice(cfg) is cfg
+    for c in (cfg, TCfg.small()):
+        for call in (lambda: tp.init_state(c),
+                     lambda: tp.replay(st, scans, c),
+                     lambda: tp.process_scan(st, tp.ScanInput(
+                         *[f[0] for f in scans]), c),
+                     lambda: tp.flush_slabs(st),
+                     lambda: tsyn.to_scan_inputs(ds, c)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
 
 
 def test_port_imports_neither_jax_nor_reference_package():

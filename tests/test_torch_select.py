@@ -37,7 +37,6 @@ from fl_slam_tpu.ops import assoc_kernels as jak
 from fl_slam_tpu_torch import convert
 from fl_slam_tpu_torch import pipeline as tp
 from fl_slam_tpu_torch.config import GCConfig as TCfg
-from fl_slam_tpu_torch.config import require_slice
 from fl_slam_tpu_torch.ops import assoc_kernels as tak
 
 KW = dict(cost_beta=0.5, recency_scale=0.002)
@@ -184,7 +183,10 @@ def test_select_gate_and_shape_checks():
     x = [torch.from_numpy(a) for a in _inputs(80, 256, 0)]
     with pytest.raises(ValueError, match="multiples of 128"):
         tak.select_candidates(*x, torch.tensor(0), k=4, **KW)
-    assert require_slice(TCfg.tpu(select_kernel=True)).select_kernel
+    cfg = TCfg.tpu(select_kernel=True)
+    assert tak.use_select_kernel(cfg.select_kernel, cfg.n_meas,
+                                 cfg.n_active_tiles * cfg.m_tile_view,
+                                 cfg.k_assoc)
 
 
 # ---------------------------------------------------------------------------
