@@ -16,13 +16,14 @@ Phases (any failure raises and the script exits non-zero without a result):
      reruns bit for bit, and at their edges (K3: N not a multiple of the
      cluster's columns, N below the cluster, K = 1, K = 32; K4: every id in
      one cell, every id out of range, N not a multiple of the span, f64 at
-     F = 64); K5 in f32; K1/K2 in f32 and f64 on three input sets, seeded
-     SPD operands, the operands captured from one scan of a
-     ``GCConfig.tpu()`` replay and an edge set (condition number 1e7, the
-     first scan of the relative odometry branch, dt = 1e-4 s), reruns bit
-     for bit, and their device us per call, one instance and B = 8, beside
-     the one-block design's; K1/K2, K3 and K4's fuse site also on the
-     operands captured from one camera-on scan (its camera rows live); K6
+     F = 64); K5 in f32 (device ms at refresh 0 and 1 apart); K1/K2 in
+     f32 and f64 on three input sets, seeded SPD operands, the operands
+     captured from one scan of a ``GCConfig.tpu()`` replay and an edge
+     set (condition number 1e7, the first scan of the relative odometry
+     branch, dt = 1e-4 s), reruns bit for bit, and their device us per
+     call, one instance and B = 8, beside the one-block design's; K1/K2,
+     K3 and K4's fuse site also on the operands captured from one
+     camera-on scan (its camera rows live); K6
      and K9 at their edges (K6 at B = 8: the last page of every slab, int32
      offsets, offsets shared by every instance, offsets off the 16-byte
      grid, f64; K9 in f32 and f64: one chunk, V = 16,640, N not a multiple
@@ -118,6 +119,24 @@ Phases (any failure raises and the script exits non-zero without a result):
      its one-instance replay, no vmap fallback, the peak below the memory
      envelope; (e) K4 on the fuse operands captured in (a), against its
      plain version (1.5e-3 relative), timed, a ``kernels`` row of its own.
+ 13. the host API on the card: (a) ``graft_entry.entry()`` (the twin of
+     ``__graft_entry__.entry``): one step at its tiny configuration, a
+     finite pose, each launch counted; (b) ``pipeline.make_step`` over
+     phase 4's first 10 scans equal to a ``process_scan`` loop bit for bit
+     (its launches counted), ``replay_jit`` equal to ``replay``; (c)
+     ``graft_entry.dryrun_multichip(1)`` and ``(2, [card, card])`` (two
+     shards on one card): its checks (a batched step, a batched replay of
+     2 chunks of 3 scans, each instance within 1e-5 of one replay, the
+     memory envelope of ``GCConfig.tpu()`` against the card's own memory),
+     0 host syncs inside each batched replay; (d) ``eval.run_eval`` on
+     phase 9's fixture as there but with its dashboards and map renders:
+     phase 9's checks and bands, ``dashboard.png``,
+     ``expected_effect.png``, ``map_chase.png`` and ``map_bev.png``
+     written, K8's stage 1 and stage 2 launched once per render, each
+     render's ms, primitives and peak memory printed; then
+     ``python -m fl_slam_tpu_torch.render.view_splat`` on that run
+     directory in a process of its own. Phases 9 and 11 run ``run_eval``
+     with ``--no-render``, as before the renders existed.
 Phase 3 also holds the batched launches (K1-K5 at B = 8: K3/K4 batched in
 f32 and f64, and K7), K6 and K10, and K8 (960 x 720, K = 64: stage 1 bit
 for bit against ``tile_params`` on the seeded scene, at its edges and at
@@ -139,6 +158,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -534,6 +554,9 @@ def check_kernels(cam_ops: dict) -> list:
             site=f"refresh={r}", max_abs_err=err, tolerance=0.0,
             ms=_time_ms(lambda: atlas_kernels.conditional_slab_exchange_ff(
                 *ins_k, old, new, flag)),
+            device_ms=_device_ms(
+                lambda: atlas_kernels.conditional_slab_exchange_ff(
+                    *ins_k, old, new, flag)),
             plain_ms=_time_ms(
                 lambda: atlas_kernels.conditional_slab_exchange_ff_plain(
                     *ins_p, old, new, flag)),
@@ -2221,33 +2244,28 @@ def _bag_launches(cfg, n: int) -> dict:
             "conditional_slab_exchange_ff": n // cfg.view_refresh_every}
 
 
-def bag_path() -> dict:
+def bag_path(tmp: str) -> dict:
     """Phase 9: the evaluation entry point on a Kimera-layout fixture bag
     (staging included), against a monolithic replay of the same staged
-    scans. Returns the phase's numbers (the streamed run's launch counts
-    among them)."""
+    scans. The fixture is written under ``tmp`` (the caller's, which phase
+    13 reads too). Returns the phase's numbers (the streamed run's launch
+    counts among them) and the fixture's paths."""
     import os
-    import shutil
-    import tempfile
 
     import numpy as np
     from fl_slam_tpu_torch.config import GCConfig
     from fl_slam_tpu_torch.io.kimera import make_kimera_fixture_bag
 
     cfg = GCConfig.tpu()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_bag_")
-    try:
-        t0 = time.perf_counter()
-        bag_dir, gt = make_kimera_fixture_bag(
-            os.path.join(tmp, "bag"), n_scans=N_BAG, seed=0, n_az=BAG_N_AZ)
-        bag_s = time.perf_counter() - t0
-        res, counts, seg_syncs, loop_syncs = _counted_run_eval([
-            "--out", os.path.join(tmp, "eval"), "--bag", bag_dir,
-            "--profile", "kimera", "--gt", gt, "--scans", str(N_BAG),
-            "--seg-len", str(BAG_SEG), "--stream"])
-        _, mono, replay_s, _ = _whole_bag_replay(bag_dir, cfg, N_BAG, {})
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    bag_dir, gt = make_kimera_fixture_bag(
+        os.path.join(tmp, "bag"), n_scans=N_BAG, seed=0, n_az=BAG_N_AZ)
+    bag_s = time.perf_counter() - t0
+    res, counts, seg_syncs, loop_syncs = _counted_run_eval([
+        "--out", os.path.join(tmp, "eval"), "--bag", bag_dir,
+        "--profile", "kimera", "--gt", gt, "--scans", str(N_BAG),
+        "--seg-len", str(BAG_SEG), "--stream", "--no-render"])
+    _, mono, replay_s, _ = _whole_bag_replay(bag_dir, cfg, N_BAG, {})
     result = _bag_result("bag path", res, counts, seg_syncs, loop_syncs,
                          N_BAG, BAG_SEG, _bag_launches(cfg, N_BAG))
     result.update(raw_points_per_scan=16 * BAG_N_AZ, bag_build_s=bag_s,
@@ -2262,7 +2280,7 @@ def bag_path() -> dict:
     if not result["streamed_equals_monolithic"]:
         raise AssertionError("bag path: the streamed poses differ from one "
                              "replay of the same staged scans")
-    return result
+    return dict(result, bag_dir=bag_dir, gt=gt)
 
 
 def _belief_held(ops: dict, label: str) -> dict:
@@ -2332,7 +2350,7 @@ def camera_bag_path(bag_off: dict) -> dict:
                 "--out", os.path.join(tmp, tag), "--bag", bag_dir,
                 "--profile", "kimera", "--calib", calib_path, "--gt", gt,
                 "--scans", str(N_CAM_BAG), "--seg-len", str(CAM_BAG_SEG),
-                "--stream"])
+                "--stream", "--no-render"])
 
         live = run("live")
         whole, mono, replay_s, init = _whole_bag_replay(
@@ -2604,6 +2622,8 @@ def _k4_per_slot_row(ops: dict, launches: int) -> dict:
         bound_ms=bound, bound_by=by,
         library_ms=_time_ms(lambda: zeros.clone().index_add_(0, cell,
                                                              payT)),
+        library_device_ms=_device_ms(lambda: zeros.clone().index_add_(
+            0, cell, payT)), library="index_add_",
         shape=f"payload ({F}, {Np}) f32 into V = {n_cells} view rows, "
               "captured from GCConfig()")
 
@@ -2756,6 +2776,195 @@ def reference_config_path(main: dict) -> list:
                              f"above the envelope {envelope}")
     return [row]
 
+N_HOST_API = 10        # phase 13 (b): make_step / replay_jit over these scans
+
+
+def _single_launches(cfg, n_scans: int, n_exchanges: int) -> dict:
+    """The one-instance kernels' launches of ``n_scans`` scans with
+    ``n_exchanges`` chunk boundaries at ``cfg``."""
+    from fl_slam_tpu_torch.ops.belief_kernels import use_belief_kernels
+    want = {"sinkhorn_piT": n_scans, "moment_segment_sum[surfels]": n_scans,
+            "moment_segment_sum[fuse]": n_scans,
+            "conditional_slab_exchange_ff": n_exchanges}
+    if use_belief_kernels(cfg):
+        want["predict_evidence"] = want["scalar_tail"] = n_scans
+    return want
+
+
+def _held_counts(label: str, counts: dict, want: dict) -> dict:
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def _counted_dryruns(dev) -> list:
+    """``graft_entry.dryrun_multichip(1)`` and ``(2, [card, card])``, the
+    host syncs inside each batched replay counted."""
+    import torch
+    from fl_slam_tpu_torch import graft_entry
+    from fl_slam_tpu_torch.parallel import replicas
+
+    batched_replay, syncs = replicas.batched_replay, []
+
+    def counted(cfg, mesh):
+        run = batched_replay(cfg, mesh)
+
+        def sync_checked(states, scans):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = run(states, scans)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sum(_SYNC_WARNING in str(w.message)
+                             for w in caught))
+            return out
+        return sync_checked
+
+    replicas.batched_replay = counted
+    out = []
+    try:
+        for n, devices in ((1, None), (2, [dev, dev])):
+            t0 = time.perf_counter()
+            r = graft_entry.dryrun_multichip(n, devices)
+            out.append(dict(
+                n=n, devices=r["devices"],
+                instance_max_abs_diff=r["instance_max_abs_diff"],
+                host_syncs_batched_replay=syncs[-1],
+                limit_bytes=r["limit_bytes"], limit_source=r["limit_source"],
+                peak_bytes_est_8=r["peak_bytes_est_8"],
+                n_refused=r["n_refused"], s=time.perf_counter() - t0))
+    finally:
+        replicas.batched_replay = batched_replay
+    for r in out:
+        if r["host_syncs_batched_replay"]:
+            raise AssertionError(f"dry run on {r['devices']}: "
+                                 f"{r['host_syncs_batched_replay']} host "
+                                 "syncs in the batched replay")
+        if r["limit_source"] != "torch.cuda.mem_get_info":
+            raise AssertionError(f"dry run envelope: {r['limit_source']}")
+    return out
+
+
+def host_api_path(ds, scans, bag: dict) -> dict:
+    """Phase 13: the host API on the card. (a) ``graft_entry.entry()``: one
+    step, a finite pose, each launch counted; (b) ``make_step`` over the
+    first N_HOST_API scans of phase 4 equal to a ``process_scan`` loop bit
+    for bit, and ``replay_jit`` equal to ``replay``; (c)
+    ``dryrun_multichip(1)`` and ``(2, [card, card])`` (two shards on one
+    card: the split, the device guard, the reassembly), each instance
+    within 1e-5 of one replay, 0 host syncs in the batched replay, the
+    envelope from the card's own memory; (d) ``run_eval`` on phase 9's
+    fixture (``bag``) with its dashboards and map renders: the phase-9
+    checks and bands, the four PNGs, K8's stage 1 and stage 2 once per
+    image; then ``python -m fl_slam_tpu_torch.render.view_splat`` on its
+    run directory in a process of its own."""
+    import os
+
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch import graft_entry
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.pipeline import (init_state, make_step,
+                                            process_scan, replay, replay_jit)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    result = {}
+
+    # (a)
+    fn, (state, scan) = graft_entry.entry()
+    torch.cuda.synchronize()
+    _reset_counts()
+    pose = fn(state, scan).cpu().numpy()
+    counts = _read_counts()
+    if pose.shape != (6,) or not np.isfinite(pose).all():
+        raise AssertionError(f"entry(): pose {pose}")
+    result["entry"] = dict(pose=pose.tolist(), launches=_held_counts(
+        "entry()", counts, _single_launches(graft_entry._tiny_cfg(), 1, 1)))
+
+    # (b)
+    cfg = GCConfig.tpu()
+
+    def fresh():
+        return init_state(cfg, anchor0=ds.gt_poses[0],
+                          t0=float(ds.gt_stamps[0]) - 0.1)
+
+    def loop(step):
+        st, poses = fresh(), []
+        for i in range(N_HOST_API):
+            st, out = step(st, type(scans)(*[f[i] for f in scans]))
+            poses.append(out.pose)
+        return torch.stack(poses)
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    stepped = loop(make_step(cfg))
+    counts = _read_counts()
+    looped = loop(lambda st, sc: process_scan(st, sc, cfg))
+    jit = replay_jit(cfg)(fresh(), scans)[1].pose
+    plain = replay(fresh(), scans, cfg)[1].pose
+    result["make_step"] = dict(
+        scans=N_HOST_API, equals_process_scan=bool(torch.equal(stepped,
+                                                               looped)),
+        replay_jit_equals_replay=bool(torch.equal(jit, plain)),
+        launches=_held_counts("make_step", counts, _single_launches(
+            cfg, N_HOST_API, N_HOST_API)))
+    if not (result["make_step"]["equals_process_scan"]
+            and result["make_step"]["replay_jit_equals_replay"]):
+        raise AssertionError(f"make_step / replay_jit: {result['make_step']}")
+
+    # (c)
+    result["dryrun"] = _counted_dryruns(dev)
+
+    # (d)
+    out_dir = os.path.join(os.path.dirname(bag["bag_dir"]), "eval13")
+    res, counts, seg_syncs, loop_syncs = _counted_run_eval([
+        "--out", out_dir, "--bag", bag["bag_dir"], "--profile", "kimera",
+        "--gt", bag["gt"], "--scans", str(N_BAG), "--seg-len", str(BAG_SEG),
+        "--stream"])
+    run = _bag_result("run_eval with renders", res, counts, seg_syncs,
+                      loop_syncs, N_BAG, BAG_SEG, dict(
+                          _bag_launches(cfg, N_BAG), splat_bin=2,
+                          splat_composite=2))
+    pngs = ("dashboard.png", "expected_effect.png", "map_chase.png",
+            "map_bev.png")
+    missing = [p for p in pngs if not os.path.getsize(
+        os.path.join(out_dir, p))]
+    if missing or set(res["renders"]) != set(pngs[2:]):
+        raise AssertionError(f"run_eval artifacts: missing {missing}, "
+                             f"renders {list(res['renders'])}")
+    result["run_eval"] = dict(
+        ate_trans_m=run["ate_trans_m"], ate_rot_deg=run["ate_rot_deg"],
+        rpe1_trans_m=run["rpe1_trans_m"], launches=run["launches"],
+        renders=res["renders"])
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "fl_slam_tpu_torch.render.view_splat",
+         out_dir, "--out", os.path.join(out_dir, "map_cli.png")],
+        capture_output=True, text=True, timeout=300)
+    if cli.returncode != 0 or not os.path.exists(
+            os.path.join(out_dir, "map_cli.png")):
+        raise AssertionError(f"view_splat exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    result["view_splat_cli"] = dict(line=cli.stdout.strip().splitlines()[-1],
+                                    s=time.perf_counter() - t0)
+    result["phase_s"] = time.perf_counter() - t_phase
+    print("host API: " + json.dumps(result), flush=True)
+    for name, r in res["renders"].items():
+        print(f"host API: {name} {r['n_rendered']} of {r['n_prims']} "
+              f"primitives, {r['render_ms']:.2f} ms, peak "
+              f"{r['peak_mb']:.1f} MB", flush=True)
+    worst = max(max(r["instance_max_abs_diff"]) for r in result["dryrun"])
+    print(f"host API: entry pose finite, make_step = process_scan, "
+          f"replay_jit = replay, dry runs within {worst:.2e} with 0 syncs; "
+          f"phase {result['phase_s']:.1f} s", flush=True)
+    return result
+
 
 def main() -> int:
     import torch
@@ -2786,12 +2995,15 @@ def main() -> int:
     main_run, ds, scans = main_path()
     bcounts = batched_path()
     scounts = select_path(main_run, ds, scans)
-    del ds, scans
+    scans = _slice(scans, N_HOST_API)        # phase 13's
     rcounts = render_path()
-    bag_off = bag_path()
-    camera_path()
-    camera_bag_path(bag_off)
-    ref_rows = reference_config_path(main_run)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bag_") as tmp:
+        bag_off = bag_path(tmp)
+        camera_path()
+        camera_bag_path(bag_off)
+        ref_rows = reference_config_path(main_run)
+        host_api_path(ds, scans, bag_off)
+    del ds, scans
     for row in rows:
         key = row.pop("launch_key")
         # One-instance kernels count in the GCConfig.tpu() replay of phase

@@ -38,13 +38,39 @@ def mean_increment(b: Belief, eps_lift: float = 1e-9):
     return spd_solve_lifted(b.L, b.h, eps_lift)[0]
 
 
+def world_pose7(b: Belief, eps_lift: float = 1e-9):
+    """X_anchor o Exp(delta_xi_pose) as a 7-vector [t, quat]
+    (parity: ``fl_slam_tpu/core/belief.py:67``)."""
+    return world_pose7_from_increment(b, mean_increment(b, eps_lift))
+
+
 def world_pose(b: Belief, eps_lift: float = 1e-9):
-    dz = mean_increment(b, eps_lift)
-    return se3.pose6_from_pose7(se3.pose7_plus(b.anchor, dz[..., IDX_POSE]))
+    return se3.pose6_from_pose7(world_pose7(b, eps_lift))
+
+
+def world_pose7_from_increment(b: Belief, dz):
+    """(parity: ``fl_slam_tpu/core/belief.py:81``)."""
+    return se3.pose7_plus(b.anchor, dz[..., IDX_POSE])
 
 
 def world_pose_from_increment(b: Belief, dz):
-    return se3.pose6_from_pose7(se3.pose7_plus(b.anchor, dz[..., IDX_POSE]))
+    return se3.pose6_from_pose7(world_pose7_from_increment(b, dz))
+
+
+def shift_chart(b: Belief, shift) -> Belief:
+    """Move the linearization point by ``shift`` (22-D) without changing
+    the distribution to first order: h' = h - L shift
+    (parity: ``fl_slam_tpu/core/belief.py:89``)."""
+    return b._replace(h=b.h - torch.einsum("...ij,...j->...i", b.L, shift))
+
+
+class HypothesisSet(NamedTuple):
+    """The K-hypothesis bank: beliefs stacked on a leading axis, and their
+    weights (K,) (parity: ``fl_slam_tpu/core/belief.py:101``). The pipeline
+    carries the same two as ``PipelineState.belief`` / ``hyp_weights``."""
+
+    belief: Belief
+    weights: torch.Tensor
 
 
 def floor_and_normalize_weights(w, floor: float):

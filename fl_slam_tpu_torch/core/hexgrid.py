@@ -51,6 +51,15 @@ def pack_tile_key(q, r, z):
     return (q64 << _SHIFT_Q) | (r64 << _SHIFT_R) | z64
 
 
+def unpack_tile_key(key):
+    """int64 tile key -> int32 (q, r, z)
+    (parity: ``fl_slam_tpu/core/hexgrid.py:80``)."""
+    z = (key & ((1 << _SHIFT_R) - 1)) - _BIAS
+    r = ((key >> _SHIFT_R) & ((1 << _SHIFT_R) - 1)) - _BIAS
+    q = (key >> _SHIFT_Q) - _BIAS
+    return q.to(torch.int32), r.to(torch.int32), z.to(torch.int32)
+
+
 def tile_keys_from_xyz(p, h_tile: float, h_z: float | None = None):
     return pack_tile_key(*xyz_to_tile_axial(p, h_tile, h_z))
 
@@ -79,6 +88,17 @@ def stencil_tile_keys(center_q, center_r, center_z, offsets):
     r = center_r[..., None] + offsets[:, 1]
     z = center_z[..., None] + offsets[:, 2]
     return pack_tile_key(q, r, z)
+
+
+def bin_cell_ids(p, cell_size: float, c1: int, c2: int, cz: int,
+                 z_size: float | None = None):
+    """Per-point flat cell id on the wrapped hex lattice, in [0, c1 c2 cz)
+    (parity: ``fl_slam_tpu/core/hexgrid.py:133``)."""
+    if z_size is None:
+        z_size = cell_size
+    q, r, zi = xyz_to_tile_axial(p, cell_size, z_size)
+    return ((torch.remainder(q, c1) * c2 + torch.remainder(r, c2)) * cz
+            + torch.remainder(zi, cz))
 
 
 def bin_cell_ids_local(x, y, z, cell_size, c1: int, c2: int, cz: int,

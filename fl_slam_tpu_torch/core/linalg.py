@@ -1,11 +1,15 @@
-"""Total-function numeric primitives (PyTorch port of the parts of
-``fl_slam_tpu/core/linalg.py`` the scan update calls).
+"""Total-function numeric primitives (PyTorch port of
+``fl_slam_tpu/core/linalg.py``).
 
 Every function is branch-free on tensor values: no host sync. Small SPD
 solves (n <= 8) use the same unrolled elementwise Cholesky as the reference;
 larger ones use ``cholesky_ex`` + triangular solves (no error check, so no
 host sync). ``top_k_two_stage`` is the reference's binned approximate top-k,
-ported exactly (lowest index wins ties).
+ported exactly (lowest index wins ties). The reference's ``mm`` / ``mv`` /
+``quad_form`` are VPU broadcast-sums (a TPU workaround); here they are plain
+tensor products. ``project_psd`` and ``cond_spectral`` call
+``torch.linalg.eigh`` / ``eigvalsh``, which check their status on the host:
+keep them off the replay's path, as the reference does.
 """
 
 from __future__ import annotations
@@ -21,6 +25,39 @@ def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
+def symmetrize(A):
+    """0.5 (A + A^T); returns (result, asymmetry magnitude)
+    (parity: ``fl_slam_tpu/core/linalg.py:25``)."""
+    At = A.transpose(-1, -2)
+    return 0.5 * (A + At), torch.linalg.norm(A - At, dim=(-2, -1)) * 0.5
+
+
+def mm(a, b):
+    """Batched small matmul (parity: ``fl_slam_tpu/core/linalg.py:32``)."""
+    return a @ b
+
+
+def mv(A, v):
+    """Batched small matvec (parity: ``fl_slam_tpu/core/linalg.py:45``)."""
+    return (A @ v[..., None])[..., 0]
+
+
+def quad_form(v, A):
+    """v^T A v batched (parity: ``fl_slam_tpu/core/linalg.py:50``)."""
+    return torch.einsum("...i,...ij,...j->...", v, A, v)
+
+
+def project_psd(A, eps: float = 1e-12):
+    """Eigenvalue-floor PSD projection; returns (result, clipped eigenvalue
+    mass) (parity: ``fl_slam_tpu/core/linalg.py:55``)."""
+    S = 0.5 * (A + A.transpose(-1, -2))
+    lam, Q = torch.linalg.eigh(S)
+    mag = torch.sum(torch.clamp(eps - lam, min=0.0), dim=-1)
+    out = torch.einsum("...ij,...j,...kj->...ik", Q, torch.clamp(lam, min=eps),
+                       Q)
+    return 0.5 * (out + out.transpose(-1, -2)), mag
+
+
 def psd_guard(A, eps: float = 1e-12):
     """Symmetrize + eps lift for matrices PSD by construction; (A', 0)."""
     A = 0.5 * (A + A.transpose(-1, -2))
@@ -34,6 +71,58 @@ def project_psd3(A, eps: float = 1e-12):
     lam_min = eigvalsh3x3(A)[..., 0]
     lift = torch.clamp(-lam_min, min=0.0) + eps
     return A + lift[..., None, None] * _eye(3, A), lift
+
+
+def inv_mass(m, eps: float = 1e-12):
+    """1 / (m + eps) for nonnegative masses
+    (parity: ``fl_slam_tpu/core/linalg.py:186``)."""
+    return 1.0 / (m + eps)
+
+
+def clamp(x, lo, hi):
+    """Clip with magnitude = amount clipped
+    (parity: ``fl_slam_tpu/core/linalg.py:191``)."""
+    y = torch.clamp(x, lo, hi)
+    return y, torch.abs(x - y)
+
+
+def safe_normalize(v, eps: float = 1e-12):
+    """Normalize the last axis; zero vectors map to zero. Returns (unit,
+    norm) (parity: ``fl_slam_tpu/core/linalg.py:197``)."""
+    n = torch.linalg.norm(v, dim=-1, keepdim=True)
+    unit = torch.where(n > eps, v / torch.clamp(n, min=eps),
+                       torch.zeros_like(v))
+    return unit, n[..., 0]
+
+
+def masked_softmax(logits, mask, axis: int = -1, floor: float = 1e-12):
+    """Softmax over valid entries; fully masked rows give zeros
+    (parity: ``fl_slam_tpu/core/linalg.py:205``)."""
+    z = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    z = z - stop_max(z, axis)
+    e = torch.where(mask, torch.exp(z), 0.0)
+    return e / torch.clamp(torch.sum(e, dim=axis, keepdim=True), min=floor)
+
+
+def stop_max(z, axis: int):
+    """The max along ``axis`` (kept), 0 where it is not finite (the
+    reference's ``jax_stop_max``, ``fl_slam_tpu/core/linalg.py:218``)."""
+    m = torch.amax(z, dim=axis, keepdim=True)
+    return torch.where(torch.isfinite(m), m, 0.0)
+
+
+def sanitize(x, sentinel: float = 1e6):
+    """Non-finite entries -> 0 / +-sentinel
+    (parity: ``fl_slam_tpu/core/linalg.py:223``)."""
+    return torch.nan_to_num(x, nan=0.0, posinf=sentinel, neginf=-sentinel)
+
+
+def cond_spectral(A, eps: float = 1e-12):
+    """Spectral condition number by ``eigvalsh`` (off the hot path;
+    parity: ``fl_slam_tpu/core/linalg.py:240``)."""
+    lam = torch.linalg.eigvalsh(0.5 * (A + A.transpose(-1, -2)))
+    return ((torch.amax(lam, dim=-1) + eps)
+            / (torch.clamp(torch.amin(lam, dim=-1), min=0.0) + eps))
 
 
 def cond_proxy(A, eps: float = 1e-12):
@@ -215,6 +304,13 @@ def eigvec3x3(A, lam):
                        ez)
 
 
+def eigh3x3_smallest(A):
+    """(smallest eigenvalue, its unit eigenvector, all eigenvalues) of
+    symmetric (..., 3, 3) (parity: ``fl_slam_tpu/core/linalg.py:313``)."""
+    lam = eigvalsh3x3(A)
+    return lam[..., 0], eigvec3x3(A, lam[..., 0]), lam
+
+
 def det3x3(A):
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -243,6 +339,12 @@ def inv3x3(A, eps: float = 0.0):
                        torch.stack([A10, A11, A12], -1),
                        torch.stack([A20, A21, A22], -1)], -2)
     return adj * inv_det[..., None, None]
+
+
+def solve3x3(A, b, eps: float = 0.0):
+    """Solve (A + eps I) x = b for (..., 3, 3) / (..., 3)
+    (parity: ``fl_slam_tpu/core/linalg.py:361``)."""
+    return torch.einsum("...ij,...j->...i", inv3x3(A, eps), b)
 
 
 def kabsch3x3(S, eps: float = 1e-12):
@@ -292,6 +394,12 @@ def sym6_to_mat33(c):
     return torch.stack([torch.stack([xx, xy, xz], -1),
                         torch.stack([xy, yy, yz], -1),
                         torch.stack([xz, yz, zz], -1)], -2)
+
+
+def sym6_trace(c, axis: int = -1):
+    """xx + yy + zz of packed symmetric components along ``axis``
+    (parity: ``fl_slam_tpu/core/linalg.py:446``)."""
+    return (c.select(axis, 0) + c.select(axis, 3)) + c.select(axis, 5)
 
 
 def top_k(x, k: int):
@@ -412,3 +520,13 @@ def sym6p_inv(s, eps: float = 0.0):
                        torch.where(det < 0, -1e-30, torch.full_like(det, 1e-30)),
                        det)
     return torch.stack([A00, A01, A02, A11, A12, A22], 0) * (1.0 / safe)[None]
+
+
+def sym6p_matvec(s, v):
+    """(6, C) symmetric planes @ (3, C) vector planes -> (3, C)
+    (parity: ``fl_slam_tpu/core/linalg.py:613``)."""
+    a00, a01, a02, a11, a12, a22 = s
+    x, y, z = v
+    return torch.stack([a00 * x + a01 * y + a02 * z,
+                        a01 * x + a11 * y + a12 * z,
+                        a02 * x + a12 * y + a22 * z], 0)

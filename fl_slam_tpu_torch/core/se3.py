@@ -237,3 +237,58 @@ def pose7_minus(a7, b7):
     rel = pose7_relative(b7, a7)
     w = quat_to_rotvec(rel[..., 3:7])
     return torch.cat([_mv(so3_V_inv(w), rel[..., 0:3]), w], -1)
+
+
+def hat(w):
+    """(..., 3) -> (..., 3, 3) skew-symmetric matrix
+    (parity: ``fl_slam_tpu/core/se3.py:29``)."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack([torch.stack([z, -wz, wy], -1),
+                        torch.stack([wz, z, -wx], -1),
+                        torch.stack([-wy, wx, z], -1)], -2)
+
+
+def so3_right_jacobian(w):
+    """Right Jacobian Jr(w) = V(-w) (parity: ``fl_slam_tpu/core/se3.py:182``)."""
+    return so3_V(-w)
+
+
+def so3_right_jacobian_inv(w):
+    """Jr(w)^-1 = V(-w)^-1 (parity: ``fl_slam_tpu/core/se3.py:187``)."""
+    return so3_V_inv(-w)
+
+
+def pose_rt(pose):
+    """(..., 6) -> ((..., 3, 3) R, (..., 3) t)
+    (parity: ``fl_slam_tpu/core/se3.py:195``)."""
+    return so3_exp(pose[..., 3:6]), pose[..., 0:3]
+
+
+def se3_apply(pose, p):
+    """Apply a pose to points: (..., 6) x (..., 3) -> (..., 3)
+    (parity: ``fl_slam_tpu/core/se3.py:380``)."""
+    R, t = pose_rt(pose)
+    return _mv(R, p) + t
+
+
+def se3_adjoint(pose):
+    """(..., 6) -> (..., 6, 6) adjoint for the [rho, omega] twist order
+    (parity: ``fl_slam_tpu/core/se3.py:386``)."""
+    R, t = pose_rt(pose)
+    top = torch.cat([R, hat(t) @ R], -1)
+    bot = torch.cat([torch.zeros_like(R), R], -1)
+    return torch.cat([top, bot], -2)
+
+
+def transport_cov_pose(cov, pose):
+    """Ad cov Ad^T for a 6x6 pose covariance
+    (parity: ``fl_slam_tpu/core/se3.py:395``)."""
+    Ad = se3_adjoint(pose)
+    return Ad @ cov @ Ad.transpose(-1, -2)
+
+
+def rotate_cov(R, cov3):
+    """R cov R^T for (..., 3, 3) blocks
+    (parity: ``fl_slam_tpu/core/se3.py:401``)."""
+    return R @ cov3 @ R.transpose(-1, -2)

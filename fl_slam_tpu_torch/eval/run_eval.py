@@ -1,15 +1,20 @@
-"""The evaluation entry point of the port (twin of ``tools/run_eval.py``,
-without the HTML / matplotlib dashboards and map renders).
+"""The evaluation entry point of the port (twin of ``tools/run_eval.py``;
+its plotly HTML dashboards are not ported).
 
 Stages: stage data (synthetic, or a ROS 2 bag) -> replay (one shot, or in
 segments with ``--seg-len``; ``--stream`` stages each segment of the bag
 lazily, one segment ahead in a staging thread) -> audit gates -> GT
 time-base and overlap gates -> ATE / RPE -> artifacts (``trajectory.tum``,
 ``metrics.json``, ``wiring_audit.json`` for a bag, ``diagnostics.npz``,
-``splat_export.npz``, ``runtime_manifest.json``).
+``splat_export.npz``, ``runtime_manifest.json``) -> dashboards
+(``dashboard.png``, ``expected_effect.png``, drawn by ``eval.plots``) -> map
+renders (``map_chase.png``, ``map_bev.png``: ``render.view_splat`` in this
+process, through K8 on the card; at 480x360 and 4,096 primitives on the
+CPU, as the reference's CPU budget; ``--no-render`` skips them).
 
   python -m fl_slam_tpu_torch.eval.run_eval --out runs/eval1 [--scans 100]
-      [--seed 3] [--drift] [--camera] [--cpu] [--small] [key=value ...]
+      [--seed 3] [--drift] [--camera] [--cpu] [--small] [--no-render]
+      [key=value ...]
   python -m fl_slam_tpu_torch.eval.run_eval --out runs/k --profile kimera
       --bag <bag dir> --gt <gt.tum> [--seg-len 200 --stream] [--calib c.json]
 
@@ -69,6 +74,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", default=None, choices=["kimera"],
                     help="'kimera': the /acl_jackal/* topics of the "
                     "reference workload (io.kimera)")
+    ap.add_argument("--no-render", action="store_true",
+                    help="skip the chase and BEV map renders")
     ap.add_argument("overrides", nargs="*",
                     help="GCConfig overrides as key=value")
     return ap
@@ -97,6 +104,38 @@ def _print_wiring_summary(audit: dict) -> None:
              f"{audit['camera_scans']}" if "camera_pairs" in audit else ""))
 
 
+def _dashboards(out_dir: str, certs: dict, poses, gt_poses, stamps) -> None:
+    """``dashboard.png`` and ``expected_effect.png`` (the reference's
+    ``_dashboard_mpl`` and ``_effect_dashboard``, ``tools/run_eval.py:466``,
+    ``:517``)."""
+    from fl_slam_tpu_torch.certs import effect_pairs
+    from fl_slam_tpu_torch.eval import plots
+    for name, panels in (
+            ("dashboard.png",
+             plots.dashboard_panels(certs, poses, gt_poses, stamps)),
+            ("expected_effect.png",
+             plots.effect_panels(effect_pairs(certs), stamps))):
+        path = plots.save_panels(os.path.join(out_dir, name), panels)
+        print(f"[dashboard] {path}", flush=True)
+
+
+def _render_views(out_dir: str, dev) -> dict:
+    """Chase-view and BEV renders of the exported map (the reference's
+    ``_render_views``, ``tools/run_eval.py:401``), in this process; the
+    reference's smaller budget on the CPU. Returns each render's numbers."""
+    from fl_slam_tpu_torch.render import view_splat
+    small = (dict(wh=(480, 360), max_prims=4096) if dev.type == "cpu"
+             else {})
+    out = {}
+    for name, bev in (("map_chase.png", False), ("map_bev.png", True)):
+        r = view_splat.render_export(out_dir, os.path.join(out_dir, name),
+                                     bev=bev, device=dev, **small)
+        print(f"[render] {r['out']}: {r['n_rendered']} of {r['n_prims']} "
+              f"primitives, {r['render_ms']:.1f} ms", flush=True)
+        out[name] = {k: v for k, v in r.items() if k != "image"}
+    return out
+
+
 def _fail(msg: str):
     print(f"[FAIL] {msg}", flush=True)
     raise SystemExit(2)
@@ -104,8 +143,10 @@ def _fail(msg: str):
 
 def main(argv=None) -> dict:
     """Run the evaluation; returns {"metrics", "gates", "poses", "stamps",
-    "certs", "audit", "stager"} (``stager``: the ``StreamingStager`` of a
-    streamed run, else None). Raises SystemExit(2) on a failed gate."""
+    "certs", "audit", "stager", "renders"} (``stager``: the
+    ``StreamingStager`` of a streamed run, else None; ``renders``: each map
+    render's numbers, empty with ``--no-render``). Raises SystemExit(2) on a
+    failed gate."""
     args = _parser().parse_args(argv)
     if args.profile == "kimera":
         from fl_slam_tpu_torch.io.kimera import (KIMERA_CAM_TOPICS,
@@ -327,10 +368,12 @@ def main(argv=None) -> dict:
     save_runtime_manifest(os.path.join(args.out, "runtime_manifest.json"),
                           cfg, extra={"metrics": {"wall_s": wall}},
                           device=dev)
+    _dashboards(args.out, certs, poses, gt_poses, np.asarray(stamps))
+    renders = {} if args.no_render else _render_views(args.out, dev)
     print(f"[done] artifacts in {args.out}", flush=True)
     return {"metrics": metrics, "gates": gates, "poses": poses,
             "stamps": est_stamps, "certs": certs, "audit": audit,
-            "stager": stager}
+            "stager": stager, "renders": renders}
 
 
 if __name__ == "__main__":

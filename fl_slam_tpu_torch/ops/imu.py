@@ -48,6 +48,13 @@ def window_interval_weights(stamps, t_start, t_end, sigma,
     return w * valid, dt
 
 
+def imu_dt_intervals(stamps):
+    """dt_i = t_{i+1} - t_i with the last forced to 0, clipped nonnegative
+    (parity: ``fl_slam_tpu/ops/imu.py:41``)."""
+    dt = torch.cat([stamps[1:] - stamps[:-1], torch.zeros_like(stamps[:1])])
+    return torch.clamp(dt, min=0.0)
+
+
 def integration_time(stamps, t_start, t_end):
     eps = 1e-9
     valid = stamps > 0.0

@@ -1,7 +1,8 @@
 """The per-scan inference step and the chunked replay (port of
 ``fl_slam_tpu/pipeline.py``: ``init_state``, ``_chunk_begin``,
 ``_scan_core``, ``_chunk_end``, ``process_scan``, ``flush_slabs``, the
-chunked ``replay`` and ``replay_segments``).
+chunked ``replay``, ``replay_segments`` and the factories ``make_step`` /
+``replay_jit``).
 
 The hypothesis bank is a leading K axis on the belief, as in the
 reference: the 22-D algebra (predict, evidence, fuse, recompose, anchor
@@ -299,6 +300,24 @@ def process_scan(state: PipelineState, scan: ScanInput, cfg: GCConfig,
     state, ctx = _chunk_begin(state, cfg, gamma_power=1)
     state, ctx, out = _scan_core(state, ctx, scan, cfg)
     return _chunk_end(state, ctx, cfg), out
+
+
+def make_step(cfg: GCConfig, device=None):
+    """``step(state, scan) -> (state', ScanOutput)``: ``process_scan`` with
+    ``cfg`` and the device bound (the reference's jitted step,
+    ``fl_slam_tpu/pipeline.py:1041``).
+
+    The reference donates the state (``donate_argnums=(0,)``); here the
+    step consumes it the same way: the tile pool and the resident slabs are
+    updated in place, so the state passed in must not be used again. Nothing
+    is compiled: the step runs the same eager launches as ``process_scan``
+    (a CUDA graph of a chunk is perf work outside the port)."""
+    dev = resolve_device(device)
+
+    def step(state, scan):
+        return process_scan(state, scan, cfg, device=dev)
+
+    return step
 
 
 def _predict_and_evidence(bel_prev, mu_prev, sigma_prev, *, scan, cfg, Q,
@@ -845,6 +864,19 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
     certs = {k: certs_tc[:, j] for j, k in enumerate(names)}
     return flush_slabs(state, dev), ScanOutput(
         pose=torch.stack(poses), stamp=torch.stack(stamps), certs=certs)
+
+
+def replay_jit(cfg: GCConfig, device=None):
+    """``run(state, scans) -> (final state, ScanOutput)``: ``replay`` with
+    ``cfg`` and the device bound (the reference's jitted replay,
+    ``fl_slam_tpu/pipeline.py:1118``). The state is consumed, as under the
+    reference's donation, and nothing is compiled (see ``make_step``)."""
+    dev = resolve_device(device)
+
+    def run(state, scans):
+        return replay(state, scans, cfg, device=dev)
+
+    return run
 
 
 def replay_segments(state: PipelineState, segments, cfg: GCConfig,

@@ -2,6 +2,7 @@
 goes, on one CUDA device.
 
   python3 -m fl_slam_tpu_torch.render_split [--reps N] [--stamps]
+      [--export RUN_DIR]
 
 Renders at 960 x 720 with K = 64 (the map viewer's widths) two inputs: the
 seeded 16,384-splat scene of ``chip_smoke.py`` phase 3 and the map after
@@ -17,6 +18,12 @@ called alone on the same inputs; and stage 2's data-dependent work
 nothing else of the package, so a copy of this file and of
 ``render/splat_cases.py`` measures another commit's render in that
 commit's tree.
+
+``--export RUN_DIR`` measures instead the map of a run's
+``splat_export.npz`` as ``render.view_splat`` renders it (its top 16,384
+primitives by weight, tinted by height; the chase camera behind the last
+pose and the BEV camera), e.g. of ``eval.run_eval`` on the 1,000-scan
+Kimera-layout fixture.
 
 ``--stamps`` builds a copy of ``csrc/splat_composite.cu`` with a
 ``%globaltimer`` / ``clock64`` stamp before each line of ``BIN_ANCHORS``
@@ -224,11 +231,33 @@ def _phase8_prims():
     return prims, cam
 
 
+def _export_scenes(path: str):
+    """The export's primitives as ``render.view_splat`` renders them, with
+    its chase and BEV cameras: [(prims, camera, label)]."""
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch.render import splat, view_splat
+    pos, Lam, etas, rgb, w, n, d = view_splat.load_primitives(
+        view_splat.resolve_npz(path), N_PRIMS)
+    dev = torch.device("cuda")
+    prims = tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=dev)
+                  for a in (pos, Lam, etas, rgb, w)) + (
+        torch.ones((pos.shape[0],), dtype=torch.bool, device=dev),)
+    chase = view_splat.chase_camera(d["trajectory"][-1], 2.0, 1.0, WIDTH,
+                                    HEIGHT, 70.0)
+    return [(prims, chase, f"export_chase_{n}"),
+            (prims, splat.bev_camera(pos, WIDTH, HEIGHT), f"export_bev_{n}")]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--stamps", action="store_true",
                     help="stage 1's time by step, from a stamped build")
+    ap.add_argument("--export", default=None,
+                    help="a run directory or splat_export.npz to measure "
+                    "instead of the seeded scene and the phase-8 map")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -240,11 +269,15 @@ def main() -> None:
     configure_numerics()
     card = _card()
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    scene = seeded_scene(N_PRIMS, g, dev)
-    cam = bev_camera(scene[0].cpu().numpy(), WIDTH, HEIGHT)
-    for prims, c, label in ((scene, cam, "seeded16384"),
-                            (*_phase8_prims(), "phase8_map")):
+    if args.export:
+        scenes = _export_scenes(args.export)
+    else:
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        scene = seeded_scene(N_PRIMS, g, dev)
+        cam = bev_camera(scene[0].cpu().numpy(), WIDTH, HEIGHT)
+        scenes = ((scene, cam, "seeded16384"),
+                  (*_phase8_prims(), "phase8_map"))
+    for prims, c, label in scenes:
         if args.stamps:
             from fl_slam_tpu_torch.render import splat_kernels as sk
             table = sk.splat_table(*prims, c)

@@ -37,6 +37,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def backend_name(device=None) -> str:
+    """``"cuda"`` or ``"cpu"``: the type of ``resolve_device(device)`` (the
+    reference's ``backend_name`` names JAX's default backend)."""
+    return resolve_device(device).type
+
+
+def device_count() -> int:
+    """The number of visible CUDA devices."""
+    return torch.cuda.device_count()
+
+
 _CONSTS: dict = {}
 
 

@@ -49,6 +49,7 @@ SMALL_SLICE = dict(k_hyp=1, view_page=64, view_refresh_every=2,
                    surfel_moment_kernel=True, fuse_moment_kernel=True,
                    belief_kernel=False, camera_fuse_geom_scale=0.0)
 SMALL_ARGS = [f"{k}={v}" for k, v in SMALL_SLICE.items()]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -119,8 +120,10 @@ def test_run_eval_gates_and_artifacts(port_runs):
     for name, r in (("one", one), ("streamed", streamed)):
         assert all(r["gates"].values()), r["gates"]
         assert sorted(os.listdir(out / name)) == [
-            "diagnostics.npz", "metrics.json", "runtime_manifest.json",
-            "splat_export.npz", "trajectory.tum", "wiring_audit.json"]
+            "dashboard.png", "diagnostics.npz", "expected_effect.png",
+            "map_bev.png", "map_chase.png", "metrics.json",
+            "runtime_manifest.json", "splat_export.npz", "trajectory.tum",
+            "wiring_audit.json"]
         m = json.loads((out / name / "metrics.json").read_text())
         assert m["scans"] == 6 and m["gt_overlap_fraction"] == 1.0
         for k in ("ate", "rpe_1m", "rpe_5m", "rpe_10m", "ate_raw_odom"):
@@ -168,6 +171,68 @@ def test_run_eval_small_runs_the_reference_config(bag, tmp_path):
     assert r["poses"].shape == (6, 6)
     np.testing.assert_allclose(r["poses"], np.asarray(out.pose), rtol=0,
                                atol=1e-8)
+
+
+def _png(path):
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+@pytest.mark.parametrize("no_render", [False, True])
+def test_run_eval_writes_dashboards_and_renders(tmp_path, no_render):
+    """The dashboards always; the chase and BEV renders unless
+    ``--no-render``, at the reference's CPU budget (480x360, at most 4,096
+    primitives), drawn (not blank)."""
+    out = tmp_path / "e"
+    r = run_eval.main(["--out", str(out), "--cpu", "--small", "--scans",
+                       "6", "--drift"] + SMALL_ARGS
+                      + (["--no-render"] if no_render else []))
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    want = ["dashboard.png", "expected_effect.png"]
+    if not no_render:
+        want = sorted(want + ["map_bev.png", "map_chase.png"])
+    assert pngs == want
+    assert _png(out / "dashboard.png").shape == (880, 1320, 3)
+    n_ops = len(certs.effect_pairs(r["certs"]))
+    assert _png(out / "expected_effect.png").shape == (
+        440 * (-(-n_ops // 2)), 1320, 3)
+    assert set(r["renders"]) == set(want) - {"dashboard.png",
+                                             "expected_effect.png"}
+    for name, rr in r["renders"].items():
+        img = _png(out / name)
+        assert img.shape == (360, 480, 3)
+        assert img.std() > 0.5, name
+        assert rr["n_rendered"] == min(rr["n_prims"], 4096)
+
+
+# The port's render of an export against ``tools/view_splat.py``'s (16x16
+# tiles in f64 there, K8's 8x128 tiles in f32 here): the 8-bit images
+# agree to 1 level at most (measured), held to VIEW_TOL levels.
+VIEW_TOL = 2
+
+
+@pytest.mark.parametrize("extra", [[], ["--bev"], ["--max-prims", "48"]])
+def test_view_splat_matches_reference_tool(tmp_path, monkeypatch, extra):
+    import importlib.util
+    import sys
+
+    from fl_slam_tpu_torch.render import view_splat
+    run_eval.main(["--out", str(tmp_path), "--cpu", "--small", "--scans",
+                   "6", "--drift", "--no-render"] + SMALL_ARGS)
+    spec = importlib.util.spec_from_file_location(
+        "ref_view_splat", os.path.join(REPO, "tools", "view_splat.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    args = [str(tmp_path), "--wh", "480", "360"] + extra
+    monkeypatch.setattr(sys, "argv", ["view_splat.py"] + args + [
+        "--out", str(tmp_path / "ref.png")])
+    ref.main()
+    r = view_splat.main(args + ["--out", str(tmp_path / "port.png"),
+                                "--cpu"])
+    want, got = _png(tmp_path / "ref.png"), _png(tmp_path / "port.png")
+    np.testing.assert_array_equal(got, r["image"])
+    assert got.shape == want.shape == (360, 480, 3)
+    assert np.abs(got.astype(int) - want).max() <= VIEW_TOL
 
 
 def test_run_eval_camera_bag_matches_reference(cam_bag, cfgs, jax_run,

@@ -305,7 +305,7 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 def test_port_imports_neither_jax_nor_reference_package():
     """With ``jax``, ``fl_slam_tpu`` and ``cv2`` poisoned in
     ``sys.modules``, the port imports and runs a 2-scan CPU replay, camera
-    off and on."""
+    off and on, and the step of ``graft_entry.entry``."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -330,6 +330,9 @@ def test_port_imports_neither_jax_nor_reference_package():
             _, out = replay(st, to_scan_inputs(ds, cfg, device="cpu"), cfg,
                             device="cpu")
             assert np.isfinite(out.pose.numpy()).all()
+        from fl_slam_tpu_torch import graft_entry
+        fn, (st, scan) = graft_entry.entry(device="cpu")
+        assert np.isfinite(fn(st, scan).numpy()).all()
         assert not any(k in ("jax", "cv2") or k.startswith(
             ("jax.", "jaxlib", "fl_slam_tpu.", "cv2."))
                        for k, v in sys.modules.items() if v is not None)
