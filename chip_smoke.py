@@ -16,7 +16,14 @@ Phases (any failure raises and the script exits non-zero without a result):
      reruns bit for bit, and at their edges (K3: N not a multiple of the
      cluster's columns, N below the cluster, K = 1, K = 32; K4: every id in
      one cell, every id out of range, N not a multiple of the span, f64 at
-     F = 64); K5 in f32 (device ms at refresh 0 and 1 apart); K1/K2 in
+     F = 64); K5 in f32 (device ms at refresh 0 and 1 apart); K5, K7 and
+     K10 at their edges (new == old, every tile staying, disjoint sets,
+     partial overlap, odd M, f64; refresh 0 / at B = 8 every flag clear,
+     every flag set and mixed), each bit for bit against its plain twin,
+     flags clear leaving the tensors untouched, a rerun bit for bit, one
+     launch a call on the counter and in torch.profiler, beside their
+     bound, the bound of all 4S strips, a ``copy_`` of the bound's bytes
+     and the launch floor (a one-element ``add_``); K1/K2 in
      f32 and f64 on three input sets, seeded SPD operands, the operands
      captured from one scan of a ``GCConfig.tpu()`` replay and an edge
      set (condition number 1e7, the first scan of the relative odometry
@@ -519,51 +526,191 @@ def check_kernels(cam_ops: dict) -> list:
             shape=f"payload ({F}, {Np}) f32 into {Cn} cells", checks=checks))
     rows[-1]["edges"] = _moment_edges(g, dev)
 
-    # K5 slab exchange: pool (P, CF, M), S resident blocks, old/new slot
-    # sets that overlap; refresh 0 and 1.
+    # K5 slab exchange: pool (P, CF, M), S resident blocks; the timed case
+    # keeps 4 of its 7 tiles resident (slots 3, 9, 17, 41; 17 at its own
+    # index), at refresh 0 and 1; then every edge of exchange_cases.EDGES.
     P, M, S = cfg.n_tiles_pool, cfg.m_tile, cfg.n_active_tiles
-    pool_f = torch.randn((P, cf, M), generator=g, device=dev)
-    pool_p = torch.randint(-1, 1 << 20, (P, M), generator=g, device=dev,
-                           dtype=torch.int32)
-    ff = torch.randn((cf, S * M), generator=g, device=dev)
-    fp = torch.randint(-1, 1 << 20, (S * M,), generator=g, device=dev,
-                       dtype=torch.int32)
+    base = [torch.randn((P, cf, M), generator=g, device=dev),
+            torch.randint(-1, 1 << 20, (P, M), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.randn((cf, S * M), generator=g, device=dev),
+            torch.randint(-1, 1 << 20, (S * M,), generator=g, device=dev,
+                          dtype=torch.int32)]
     old = torch.tensor([3, 9, 17, 20, 33, 41, 60], device=dev,
                        dtype=torch.int32)
     new = torch.tensor([9, 5, 17, 62, 41, 0, 3], device=dev,
                        dtype=torch.int32)
+    one = torch.zeros(1, device=dev)
+    floor = _device_ms(lambda: one.add_(1))
+    edges = _exchange_edges(g, dev, cf, P, M, S)
     for r in (0, 1):
         flag = torch.tensor(r, device=dev, dtype=torch.int32)
-        ins_k = [t.clone() for t in (pool_f, pool_p, ff, fp)]
-        ins_p = [t.clone() for t in (pool_f, pool_p, ff, fp)]
-        atlas_kernels.conditional_slab_exchange_ff(*ins_k, old, new, flag)
-        atlas_kernels.conditional_slab_exchange_ff_plain(*ins_p, old, new,
-                                                         flag)
-        torch.cuda.synchronize()
-        err = max((x.double() - y.double()).abs().max().item()
-                  for x, y in zip(ins_k, ins_p))
-        if err != 0.0:
-            raise AssertionError(f"K5 exchange (refresh={r}) mismatch {err}")
-        nb = 4 * S * (cf + 1) * M * 4 if r else 4
-        bound, by = _bound_ms(nb, 0)
+        held, ins_k = _exchange_held(
+            f"K5 (refresh={r})", atlas_kernels.conditional_slab_exchange_ff,
+            atlas_kernels.conditional_slab_exchange_ff_plain, base, old, new,
+            flag, "exchange_ff", reps=20)
+        ins_p = [t.clone() for t in base]
+        bound, by, bound_all, copy_ms = _exchange_bound(
+            old[None], new[None], flag[None], cf, M, 4, dev)
         rows.append(dict(
             name=f"conditional_slab_exchange_ff[refresh={r}]",
             launch_key="conditional_slab_exchange_ff", route="cuda",
             source="fl_slam_tpu_torch/csrc/slab_exchange.cu",
             replaces="fl_slam_tpu/structures/atlas_kernels.py:353",
-            site=f"refresh={r}", max_abs_err=err, tolerance=0.0,
+            site=f"refresh={r}", max_abs_err=0.0, tolerance=0.0,
             ms=_time_ms(lambda: atlas_kernels.conditional_slab_exchange_ff(
                 *ins_k, old, new, flag)),
-            device_ms=_device_ms(
-                lambda: atlas_kernels.conditional_slab_exchange_ff(
-                    *ins_k, old, new, flag)),
+            device_ms=held["device_ms"],
             plain_ms=_time_ms(
                 lambda: atlas_kernels.conditional_slab_exchange_ff_plain(
                     *ins_p, old, new, flag)),
-            bound_ms=bound, bound_by=by, library_ms=None,
-            shape=f"pool ({P}, {cf}, {M}) f32, S={S}"))
+            bound_ms=bound, bound_by=by, bound_all_strips_ms=bound_all,
+            copy_device_ms=copy_ms, launch_floor_device_ms=floor,
+            library_ms=None, checks=[held],
+            shape=f"pool ({P}, {cf}, {M}) f32, S={S}",
+            edges=edges if r else []))
         del ins_k, ins_p
+    del base
+    torch.cuda.empty_cache()
     return rows
+
+
+def _exchange_held(what: str, fn, plain, base, old, new, flags, key: str,
+                   batched: bool = False, reps: int = 2) -> tuple:
+    """One exchange case: the kernel on copies of ``base`` and a rerun on
+    fresh copies, against the plain twin on another (per instance where
+    ``batched``, under ``vmap`` for the kernel), bit for bit; the instances
+    whose flag is clear left untouched; one launch a call on the port's
+    counter and in torch.profiler, whose device ms a call over ``reps``
+    calls it returns. Raises on a miss. Returns (the numbers, the kernel
+    run's tensors)."""
+    import torch
+    from fl_slam_tpu_torch.structures import atlas_kernels
+
+    def call(t):
+        if batched:
+            torch.func.vmap(fn)(*t, old, new, flags)
+        else:
+            fn(*t, old, new, flags)
+
+    runs = [[t.clone() for t in base] for _ in range(2)]
+    n0 = atlas_kernels.launches[key]
+    for t in runs:
+        call(t)
+    counted = atlas_kernels.launches[key] - n0
+    want = [t.clone() for t in base]
+    if batched:
+        for b in range(flags.shape[0]):
+            plain(*[t[b] for t in want], old[b], new[b], flags[b])
+    else:
+        plain(*want, old, new, flags)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(x, y) for x, y in zip(runs[0], want))
+    rerun = all(torch.equal(x, y) for x, y in zip(runs[0], runs[1]))
+    clear = [b for b, f in enumerate(flags.reshape(-1).tolist()) if not f]
+    untouched = all(torch.equal(x[b], y[b]) if batched else torch.equal(x, y)
+                    for b in clear for x, y in zip(runs[0], base))
+    del want, runs[1]
+    if not (exact and rerun and untouched and counted == 2):
+        raise AssertionError(f"{what}: exact {exact}, rerun identical "
+                             f"{rerun}, clear instances untouched "
+                             f"{untouched}, {counted} counted launches for "
+                             "2 calls")
+    sym = ("exchange_pass<float>" if base[0].dtype == torch.float32
+           else "exchange_pass<double>")
+    # _device_ms raises unless the profiler sees one launch a call.
+    dms = _device_ms(lambda: call(runs[0]), reps=reps, expect={sym: 1})
+    return dict(exact=exact, rerun_identical=rerun,
+                clear_untouched=untouched, clear_instances=len(clear),
+                counter_launches_per_call=counted / 2,
+                profiler_launches_per_call=1, device_ms=dms), runs[0]
+
+
+def _exchange_bound(olds, news, flags, cf: int, M: int, itemsize: int,
+                    dev) -> tuple:
+    """The exchange's bound from the strips these slots need (bytes), the
+    bound of moving all 4S strips of every flagged instance (the two-pass
+    count), and the device ms of one torch ``copy_`` that reads and writes
+    the bound's bytes (None when no flag is set)."""
+    import torch
+    from fl_slam_tpu_torch.structures import exchange_cases
+    o, n, f = (x.cpu().numpy() for x in (olds, news, flags))
+    nb = exchange_cases.exchange_bytes(o, n, f, cf, M, itemsize)
+    S = o.shape[1]
+    n_set = int((f != 0).sum())
+    nb_all = 4 * len(f) + n_set * (2 * S * 4 + 4 * S * M * (cf * itemsize
+                                                            + 4))
+    bound, by = _bound_ms(nb, 0)
+    copy_ms = None
+    if n_set:
+        src = torch.empty(nb // 8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = _device_ms(lambda: dst.copy_(src))
+        del src, dst
+    return bound, by, _bound_ms(nb_all, 0)[0], copy_ms
+
+
+def _exchange_edges(g, dev, cf: int, P: int, M0: int, S: int, B: int = 0,
+                    row_major: bool = False) -> list:
+    """The exchange at every edge of ``exchange_cases.EDGES`` at production
+    shapes, each case held by ``_exchange_held``: one instance (``B`` = 0;
+    K5, or K10 where ``row_major``) at refresh 0 and 1, or B instances (K7,
+    or batched K10) with every flag clear, every flag set and mixed
+    flags."""
+    import numpy as np
+    import torch
+    from fl_slam_tpu_torch.structures import atlas_kernels as ak
+    from fl_slam_tpu_torch.structures import exchange_cases
+
+    fn = (ak.conditional_slab_exchange if row_major
+          else ak.conditional_slab_exchange_ff)
+    plain = (ak.conditional_slab_exchange_plain if row_major
+             else ak.conditional_slab_exchange_ff_plain)
+    key = ("exchange" if row_major else "exchange_ff") + ("_batched" if B
+                                                          else "")
+    flag_sets = ({"refresh=0": [0], "refresh=1": [1]} if not B else
+                 {"all_clear": [0] * B, "all_set": [1] * B,
+                  "mixed": [1, 0, 1, 1, 0, 1, 1, 1][:B]})
+    out = []
+    for i, edge in enumerate(exchange_cases.EDGES):
+        rng = np.random.default_rng(SEED + i)
+        M = exchange_cases.edge_m(edge, M0)
+        dt = getattr(torch, exchange_cases.edge_dtype(edge))
+        slots = [exchange_cases.edge_slots(edge, P, S, rng)
+                 for _ in range(max(B, 1))]
+        old, new = (torch.from_numpy(np.stack(x)).to(dev)
+                    for x in zip(*slots))
+        lead = (B,) if B else ()
+        pool = [torch.randn((*lead, P, cf, M), generator=g, device=dev,
+                            dtype=dt),
+                torch.randint(-1, 1 << 20, (*lead, P, M), generator=g,
+                              device=dev, dtype=torch.int32)]
+        slab = ([torch.randn((*lead, S, cf, M), generator=g, device=dev,
+                             dtype=dt),
+                 torch.randint(-1, 1 << 20, (*lead, S, M), generator=g,
+                               device=dev, dtype=torch.int32)]
+                if row_major else
+                [torch.randn((*lead, cf, S * M), generator=g, device=dev,
+                             dtype=dt),
+                 torch.randint(-1, 1 << 20, (*lead, S * M), generator=g,
+                               device=dev, dtype=torch.int32)])
+        for fname, fl in flag_sets.items():
+            flags = torch.tensor(fl if B else fl[0], device=dev,
+                                 dtype=torch.int32)
+            held, _ = _exchange_held(
+                f"{key} edge {edge} {fname}", fn, plain, pool + slab,
+                old if B else old[0], new if B else new[0], flags, key,
+                batched=bool(B))
+            out.append(dict(edge=edge, flags=fname, M=M,
+                            dtype=str(dt)[6:], **held))
+        del pool, slab
+        torch.cuda.empty_cache()
+    where = f"B={B}" if B else "one instance"
+    print(f"exchange edges ({key}, {where}): {len(out)} cases, every one "
+          f"bit for bit against its plain twin, "
+          f"reruns identical, clear instances untouched, one launch a call "
+          f"(counter and profiler)", flush=True)
+    return out
 
 
 def _rel_err(got, want) -> float:
@@ -733,7 +880,7 @@ def check_batched_kernels() -> list:
         del pay, cell, out_k, out_p, zeros, payT
 
     # K7 (batched K5) and K10: pools (B, P, CF, M), per-instance slot sets
-    # and flags, some clear.
+    # and flags, some clear; then every edge of exchange_cases.EDGES.
     P, M, S = cfg.n_tiles_pool, cfg.m_tile, cfg.n_active_tiles
     flags = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1][:B], device=dev,
                          dtype=torch.int32)
@@ -750,6 +897,7 @@ def check_batched_kernels() -> list:
               else ak.conditional_slab_exchange_ff)
         plain = (ak.conditional_slab_exchange_plain if row_major
                  else ak.conditional_slab_exchange_ff_plain)
+        key = "exchange" if row_major else "exchange_ff"
         slab = (B, S, cf, M) if row_major else (B, cf, S * M)
         base = [torch.randn((B, P, cf, M), generator=g, device=dev),
                 torch.randint(-1, 1 << 20, (B, P, M), generator=g,
@@ -758,7 +906,9 @@ def check_batched_kernels() -> list:
                 torch.randint(-1, 1 << 20, (B, S, M) if row_major
                               else (B, S * M), generator=g, device=dev,
                               dtype=torch.int32)]
-        ins_k = [t.clone() for t in base]
+        held, ins_k = _exchange_held(f"{name} batched", fn, plain, base,
+                                     old, new, flags, key + "_batched",
+                                     batched=True, reps=20)
         ins_p = [t.clone() for t in base]
 
         def k7():
@@ -768,52 +918,47 @@ def check_batched_kernels() -> list:
             for b in range(B):
                 plain(*[t[b] for t in ins_p], old[b], new[b], flags[b])
 
-        k7()
-        k7_plain()
-        torch.cuda.synchronize()
-        err = max((x.double() - y.double()).abs().max().item()
-                  for x, y in zip(ins_k, ins_p))
-        if err != 0.0:
-            raise AssertionError(f"{name} batched mismatch {err}")
-        bound, by = _bound_ms(n_set * 4 * S * (cf + 1) * M * 4 + B * 4, 0)
+        bound, by, bound_all, copy_ms = _exchange_bound(old, new, flags, cf,
+                                                        M, 4, dev)
         rows.append(dict(
             name=f"{name}[batched]", launch_key=f"{name}[batched]",
             route="cuda", source="fl_slam_tpu_torch/csrc/slab_exchange.cu",
             replaces=("fl_slam_tpu/structures/atlas_kernels.py:138"
                       if row_major else
                       "fl_slam_tpu/structures/atlas_kernels.py:322"),
-            site=f"B={B}, {n_set} flags set", max_abs_err=err,
-            tolerance=0.0, ms=_time_ms(k7), device_ms=_device_ms(k7),
+            site=f"B={B}, {n_set} flags set", max_abs_err=0.0,
+            tolerance=0.0, ms=_time_ms(k7), device_ms=held["device_ms"],
             plain_ms=_time_ms(k7_plain, reps=3), bound_ms=bound,
-            bound_by=by, library_ms=None,
+            bound_by=by, bound_all_strips_ms=bound_all,
+            copy_device_ms=copy_ms, library_ms=None, checks=[held],
             shape=f"pool ({B}, {P}, {cf}, {M}) f32, S={S}"))
+        del ins_k, ins_p
+        rows[-1]["edges"] = _exchange_edges(g, dev, cf, P, M, S, B=B,
+                                            row_major=row_major)
         if row_major:
-            # K10 for one instance, flag set.
-            one_k = [t[0].clone() for t in base]
-            one_p = [t[0].clone() for t in base]
+            # K10 for one instance, flag set; then its edges.
             one = torch.ones((), device=dev, dtype=torch.int32)
-            fn(*one_k, old[0], new[0], one)
-            plain(*one_p, old[0], new[0], one)
-            torch.cuda.synchronize()
-            err = max((x.double() - y.double()).abs().max().item()
-                      for x, y in zip(one_k, one_p))
-            if err != 0.0:
-                raise AssertionError(f"{name} mismatch {err}")
-            bound, by = _bound_ms(4 * S * (cf + 1) * M * 4, 0)
+            held, one_k = _exchange_held(name, fn, plain,
+                                         [t[0] for t in base], old[0],
+                                         new[0], one, key, reps=20)
+            one_p = [t[0].clone() for t in base]
+            bound, by, bound_all, copy_ms = _exchange_bound(
+                old[:1], new[:1], one[None], cf, M, 4, dev)
             rows.append(dict(
                 name=name, launch_key=name, route="cuda",
                 source="fl_slam_tpu_torch/csrc/slab_exchange.cu",
                 replaces="fl_slam_tpu/structures/atlas_kernels.py:169",
-                site="refresh=1", max_abs_err=err, tolerance=0.0,
+                site="refresh=1", max_abs_err=0.0, tolerance=0.0,
                 ms=_time_ms(lambda: fn(*one_k, old[0], new[0], one)),
-                device_ms=_device_ms(lambda: fn(*one_k, old[0], new[0],
-                                                one)),
+                device_ms=held["device_ms"],
                 plain_ms=_time_ms(lambda: plain(*one_p, old[0], new[0], one),
                                   reps=5),
-                bound_ms=bound, bound_by=by, library_ms=None,
-                shape=f"pool ({P}, {cf}, {M}) f32, slabs ({S}, {cf}, {M})"))
+                bound_ms=bound, bound_by=by, bound_all_strips_ms=bound_all,
+                copy_device_ms=copy_ms, library_ms=None, checks=[held],
+                shape=f"pool ({P}, {cf}, {M}) f32, slabs ({S}, {cf}, {M})",
+                edges=_exchange_edges(g, dev, cf, P, M, S, row_major=True)))
             del one_k, one_p
-        del base, ins_k, ins_p
+        del base
         torch.cuda.empty_cache()
 
     # K6: the page gather and write-back of the dense-page insert.
@@ -1554,15 +1699,21 @@ def _print_belief_times(rows) -> None:
 
 
 # The designs of K6 (one block per page row), K9 (one warp per row, both
-# stages in one kernel) and K8 (one block per tile, every pixel through
-# every splat, the binning in torch) before their redesign: ms per call
-# (CUDA events), device us per call (torch.profiler; K6's then included an
-# int32 cast of the offsets), one instance and B = 8, from this script's
-# phase 3 (NVIDIA H100 80GB HBM3, 700.00 W).
+# stages in one kernel), K8 (one block per tile, every pixel through every
+# splat, the binning in torch) and K5 / K7 / K10 (two launches, flush then
+# gather, one block per strip) before their redesign: ms per call (CUDA
+# events), device us per call (torch.profiler; K6's then included an int32
+# cast of the offsets), one instance and B = 8, from this script's phase 3
+# (NVIDIA H100 80GB HBM3, 700.00 W).
 PREVIOUS_DESIGN = {"page_gather_ff": (0.456, 3.6), "page_writeback_ff":
                    (0.360, 3.5), "select_candidates": (0.099, 71.0),
                    "select_candidates[batched]": (0.389, 356.0),
-                   "splat_composite": (0.079, 74.8)}
+                   "splat_composite": (0.079, 74.8),
+                   "conditional_slab_exchange_ff[refresh=0]": (0.117, 15.9),
+                   "conditional_slab_exchange_ff[refresh=1]": (0.105, 82.1),
+                   "conditional_slab_exchange_ff[batched]": (0.494, 484.0),
+                   "conditional_slab_exchange[batched]": (0.493, 474.0),
+                   "conditional_slab_exchange": (0.130, 81.0)}
 
 
 def _print_redesign_times(rows) -> None:
@@ -1592,6 +1743,22 @@ def _print_redesign_times(rows) -> None:
               f"{r['bound_nonfma_ms'] * 1e3:.2f} us, dense "
               f"{r['bound_dense_ms'] * 1e3:.2f} us / non-FMA "
               f"{r['bound_dense_nonfma_ms'] * 1e3:.2f} us", flush=True)
+
+
+def _print_exchange_times(rows) -> None:
+    for r in rows:
+        if "bound_all_strips_ms" not in r:
+            continue
+        copy = ("none" if r["copy_device_ms"] is None
+                else f"{r['copy_device_ms'] * 1e3:.2f}")
+        floor = (f", launch floor (a one-element add_) "
+                 f"{r['launch_floor_device_ms'] * 1e3:.2f} us"
+                 if "launch_floor_device_ms" in r else "")
+        print(f"{r['name']}: device us {r['device_ms'] * 1e3:.2f}, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us from the strips these slots "
+              f"need, {r['bound_all_strips_ms'] * 1e3:.2f} us for all 4S "
+              f"strips; a copy_ of the bound's bytes {copy} us device"
+              f"{floor}", flush=True)
 
 
 def _counters():
@@ -2992,6 +3159,7 @@ def main() -> int:
     del cam_ops
     _print_belief_times(rows)
     _print_redesign_times(rows)
+    _print_exchange_times(rows)
     main_run, ds, scans = main_path()
     bcounts = batched_path()
     scounts = select_path(main_run, ds, scans)

@@ -34,9 +34,9 @@ N_SCANS = 20
 N_REPS = 3
 # The port's hand-written kernels (csrc/) by their device symbol, each with
 # the launch counters (module, key, device launches per count) that count
-# it: an exchange is two launches (flush, then gather) counted once; K4 is
-# two kernels (sort-and-reduce, then gather) counted once, and so is K9
-# (the chunks' top 2, then the top k).
+# it: an exchange is one launch (flush and gather in one pass); K4 is two
+# kernels (sort-and-reduce, then gather) counted once, and so is K9 (the
+# chunks' top 2, then the top k).
 _K4_KEYS = ("surfels", "fuse", "surfels_batched", "fuse_batched")
 KERNEL_COUNTERS = {
     "pe_kernel": (("belief_kernels", "predict_evidence", 1),
@@ -47,7 +47,7 @@ KERNEL_COUNTERS = {
                          ("assoc_kernels", "sinkhorn_piT_batched", 1)),
     "moment_sort_reduce": tuple(("surfel_kernels", k, 1) for k in _K4_KEYS),
     "moment_gather": tuple(("surfel_kernels", k, 1) for k in _K4_KEYS),
-    "exchange_kernel": tuple(("atlas_kernels", k, 2) for k in (
+    "exchange_pass": tuple(("atlas_kernels", k, 1) for k in (
         "exchange_ff", "exchange_ff_batched", "exchange",
         "exchange_batched")),
     "page_kernel": (("atlas_kernels", "page_gather", 1),

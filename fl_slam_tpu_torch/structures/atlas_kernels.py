@@ -22,7 +22,7 @@ Each is a ``torch.library.custom_op`` with an instance-batching rule
 (``csrc/slab_exchange.cu``, ``csrc/page_io.cu``) once for one instance or
 for all B; CPU tensors run the plain version (per instance under vmap); any
 other device raises. ``launches`` counts kernel launches per kernel; an
-exchange is two launches on one stream (flush, then gather) and counts one.
+exchange is one launch that flushes and gathers in one pass.
 """
 
 from __future__ import annotations

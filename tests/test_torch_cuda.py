@@ -23,7 +23,7 @@ from fl_slam_tpu_torch.ops import assoc_kernels, belief_kernels, surfel_kernels
 from fl_slam_tpu_torch.ops import noise as noise_ops
 from fl_slam_tpu_torch.render.splat_cases import (BIN_EDGE_CASES,
                                                   bin_edge_table)
-from fl_slam_tpu_torch.structures import atlas_kernels
+from fl_slam_tpu_torch.structures import atlas_kernels, exchange_cases
 
 UA = VB = 0.5 / 0.6
 
@@ -88,25 +88,51 @@ def test_moment_kernel_matches_plain_and_is_deterministic(cuda, dtype, tol,
     assert (a.cpu() - want).abs().max() <= tol * want.abs().max()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("refresh", [0, 1])
-def test_exchange_kernel_matches_plain(cuda, dtype, refresh):
-    g = torch.Generator().manual_seed(refresh)
-    P, S, CF, M = 8, 3, 32, 1000
-    args = [torch.randn((P, CF, M), generator=g, dtype=dtype),
+def _exchange_args(edge, seed, P=8, S=3, CF=32, M=1000):
+    """K5's operands (pool, prim ids, ff, fp, old, new) at ``edge``."""
+    rng = np.random.default_rng(seed)
+    M = exchange_cases.edge_m(edge, M)
+    dtype = getattr(torch, exchange_cases.edge_dtype(edge))
+    old, new = exchange_cases.edge_slots(edge, P, S, rng)
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((P, CF, M), generator=g, dtype=dtype),
             torch.randint(0, 100, (P, M), generator=g, dtype=torch.int32),
             torch.randn((CF, S * M), generator=g, dtype=dtype),
             torch.randint(100, 200, (S * M,), generator=g,
                           dtype=torch.int32),
-            torch.tensor([2, 5, 7], dtype=torch.int32),
-            torch.tensor([5, 0, 2], dtype=torch.int32)]   # overlaps old
+            torch.from_numpy(old), torch.from_numpy(new)]
+
+
+def _exchanged_twice(fn, args, flag, cuda, key):
+    """The kernel's result on CUDA copies of ``args``, one launch a call,
+    and whether a rerun on fresh copies is bit-identical."""
+    runs = []
+    for _ in range(2):
+        got = [a.to(cuda) for a in args]
+        before = atlas_kernels.launches[key]
+        fn(*got, flag.to(cuda))
+        assert atlas_kernels.launches[key] == before + 1
+        runs.append([x.cpu() for x in got])
+    return runs[0], all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.parametrize("edge", exchange_cases.EDGES)
+@pytest.mark.parametrize("refresh", [0, 1])
+def test_exchange_kernel_matches_plain(cuda, edge, refresh):
+    """K5 at every edge (odd M: the per-element path), exactly, one launch
+    a call, reruns bit for bit; refresh 0 leaves all four untouched."""
+    args = _exchange_args(edge, refresh)
     flag = torch.tensor(refresh, dtype=torch.int32)
     want = atlas_kernels.conditional_slab_exchange_ff(
         *[a.clone() for a in args], flag)
-    got = atlas_kernels.conditional_slab_exchange_ff(
-        *[a.to(cuda) for a in args], flag.to(cuda))
+    got, rerun = _exchanged_twice(atlas_kernels.conditional_slab_exchange_ff,
+                                  args, flag, cuda, "exchange_ff")
+    assert rerun
     for x, y in zip(got, want):
-        assert torch.equal(x.cpu(), y)
+        assert torch.equal(x, y)
+    if not refresh:
+        for x, y in zip(got, args):
+            assert torch.equal(x, y)
 
 
 def _spd(g, n, s=1.0):
@@ -322,52 +348,55 @@ def test_batched_moment_is_the_single_kernel_per_instance(cuda, F, N, C):
         assert torch.equal(got[b], one)
 
 
-def _batched_exchange_args(dtype, flags, row_major=False):
-    g = torch.Generator().manual_seed(len(flags))
-    P, S, CF, M = 8, 3, 32, 1000
-    slab = (B, S, CF, M) if row_major else (B, CF, S * M)
-    return [torch.randn((B, P, CF, M), generator=g, dtype=dtype),
-            torch.randint(0, 100, (B, P, M), generator=g, dtype=torch.int32),
-            torch.randn(slab, generator=g, dtype=dtype),
-            torch.randint(100, 200, (B, S * M) if not row_major
-                          else (B, S, M), generator=g, dtype=torch.int32),
-            torch.stack([torch.randperm(P, generator=g)[:S]
-                         for _ in range(B)]).to(torch.int32),
-            torch.stack([torch.randperm(P, generator=g)[:S]
-                         for _ in range(B)]).to(torch.int32),
-            torch.tensor(flags, dtype=torch.int32)]
+def _batched_exchange_args(edge, flags, row_major=False):
+    per = [_exchange_args(edge, 10 * len(flags) + b)
+           for b in range(len(flags))]
+    args = [torch.stack(xs) for xs in zip(*per)]
+    if row_major:
+        P, CF, M = args[0].shape[1:]
+        S = args[4].shape[1]
+        args[2] = args[2].view(-1, CF, S, M).transpose(1, 2).contiguous()
+        args[3] = args[3].view(-1, S, M)
+    return args + [torch.tensor(flags, dtype=torch.int32)]
 
 
+_FLAG_SETS = {"mixed": [1, 0, 1, 1], "all_clear": [0] * B,
+              "all_set": [1] * B}
+
+
+@pytest.mark.parametrize("flags", list(_FLAG_SETS))
 @pytest.mark.parametrize("row_major", [False, True], ids=["ff", "rows"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_batched_exchange_matches_plain(cuda, dtype, row_major):
+@pytest.mark.parametrize("edge", exchange_cases.EDGES)
+def test_batched_exchange_matches_plain(cuda, edge, row_major, flags):
     """K7 (ff layout) and batched K10 (row-major): each instance on its own
-    flag, exactly as the plain versions."""
+    flag, exactly as the plain versions, one launch a call, reruns bit for
+    bit."""
     fn = (atlas_kernels.conditional_slab_exchange if row_major
           else atlas_kernels.conditional_slab_exchange_ff)
     key = "exchange_batched" if row_major else "exchange_ff_batched"
-    args = _batched_exchange_args(dtype, [1, 0, 1, 1], row_major)
+    args = _batched_exchange_args(edge, _FLAG_SETS[flags], row_major)
     want = [a.clone() for a in args]
     _vmapped(fn, *want)                                  # plain, per instance
-    got = [a.to(cuda) for a in args]
-    before = atlas_kernels.launches[key]
-    _vmapped(fn, *got)
-    assert atlas_kernels.launches[key] == before + 1
+    got, rerun = _exchanged_twice(lambda *a: _vmapped(fn, *a), args[:-1],
+                                  args[-1], cuda, key)
+    assert rerun
     for x, y in zip(got, want):
-        assert torch.equal(x.cpu(), y)
+        assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("edge", exchange_cases.EDGES)
 @pytest.mark.parametrize("refresh", [0, 1])
-def test_row_major_exchange_kernel_matches_plain(cuda, refresh):
+def test_row_major_exchange_kernel_matches_plain(cuda, refresh, edge):
     """K10, one instance."""
-    args = [a[0] for a in _batched_exchange_args(torch.float32, [refresh],
+    args = [a[0] for a in _batched_exchange_args(edge, [refresh],
                                                  row_major=True)]
     want = atlas_kernels.conditional_slab_exchange(
         *[a.clone() for a in args[:-1]], args[-1])
-    got = atlas_kernels.conditional_slab_exchange(
-        *[a.to(cuda) for a in args[:-1]], args[-1].to(cuda))
+    got, rerun = _exchanged_twice(atlas_kernels.conditional_slab_exchange,
+                                  args[:-1], args[-1], cuda, "exchange")
+    assert rerun
     for x, y in zip(got, want):
-        assert torch.equal(x.cpu(), y)
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -20,7 +20,7 @@ from fl_slam_tpu.ops import assoc_kernels as j_assoc
 from fl_slam_tpu.ops import surfel_kernels as j_surf
 from fl_slam_tpu.structures import atlas_kernels as j_atlas
 from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
-from fl_slam_tpu_torch.structures import atlas_kernels
+from fl_slam_tpu_torch.structures import atlas_kernels, exchange_cases
 
 EPS, TAU = 0.1, 0.5
 UA = VB = TAU / (TAU + EPS)
@@ -85,20 +85,22 @@ def test_moment_plain_matches_segment_sum_and_drops_out_of_range():
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
-def _exchange_inputs(seed, P=8, S=3, CF=32, M=256):
+def _exchange_inputs(seed, edge="overlap", P=8, S=3, CF=32, M=256):
     rng = np.random.default_rng(seed)
-    pool_f = rng.normal(size=(P, CF, M))
+    M = exchange_cases.edge_m(edge, M)
+    dt = exchange_cases.edge_dtype(edge)
+    pool_f = rng.normal(size=(P, CF, M)).astype(dt)
     pool_p = rng.integers(0, 100, size=(P, M)).astype(np.int32)
-    ff = rng.normal(size=(CF, S * M))
+    ff = rng.normal(size=(CF, S * M)).astype(dt)
     fp = rng.integers(100, 200, size=(S * M,)).astype(np.int32)
-    old = np.array([2, 5, 7], np.int32)
-    new = np.array([5, 0, 2], np.int32)                 # overlaps old
+    old, new = exchange_cases.edge_slots(edge, P, S, rng)
     return pool_f, pool_p, ff, fp, old, new
 
 
+@pytest.mark.parametrize("edge", exchange_cases.EDGES)
 @pytest.mark.parametrize("refresh", [0, 1])
-def test_exchange_plain_matches_jax_fallback(refresh):
-    args = _exchange_inputs(refresh)
+def test_exchange_plain_matches_jax_fallback(refresh, edge):
+    args = _exchange_inputs(refresh, edge)
     want = j_atlas.conditional_slab_exchange_ff(
         *[jnp.asarray(x) for x in args], jnp.int32(refresh),
         use_kernel=False)
@@ -106,7 +108,11 @@ def test_exchange_plain_matches_jax_fallback(refresh):
         *[torch.from_numpy(x.copy()) for x in args],
         torch.tensor(refresh, dtype=torch.int32))
     for g, w in zip(got, want):
+        assert g.numpy().dtype == np.asarray(w).dtype
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if not refresh:
+        for g, x in zip(got, args):
+            np.testing.assert_array_equal(g.numpy(), x)
 
 
 def test_wrappers_raise_on_other_devices():
@@ -149,19 +155,17 @@ def _vmap_np(fn, *arrays):
     return [o.numpy() for o in out]
 
 
-def _batched_exchange_inputs(refresh_flags):
-    per = [_exchange_inputs(10 + b) for b in range(len(refresh_flags))]
-    rng = np.random.default_rng(1)
-    for b, p in enumerate(per):                       # per-instance slots
-        p[4][:] = rng.permutation(8)[:3]
-        p[5][:] = rng.permutation(8)[:3]
+def _batched_exchange_inputs(refresh_flags, edge="overlap"):
+    per = [_exchange_inputs(10 + b, edge)
+           for b in range(len(refresh_flags))]
     stacked = [np.stack(xs) for xs in zip(*per)]
     return stacked + [np.asarray(refresh_flags, np.int32)]
 
 
-def test_batched_exchange_ff_matches_jax_vmap():
+@pytest.mark.parametrize("edge", exchange_cases.EDGES)
+def test_batched_exchange_ff_matches_jax_vmap(edge):
     """K7: each instance predicated on its own flag."""
-    args = _batched_exchange_inputs([1, 0, 1])
+    args = _batched_exchange_inputs([1, 0, 1], edge)
     want = jax.vmap(lambda *a: j_atlas.conditional_slab_exchange_ff(
         *a, use_kernel=False))(*[jnp.asarray(x) for x in args])
     got = _vmap_np(atlas_kernels.conditional_slab_exchange_ff, *args)
@@ -183,10 +187,11 @@ def _row_major(args):
     return [pool_f, pool_p, slab_f, fp.reshape(lead + (S, M))] + list(args[4:])
 
 
+@pytest.mark.parametrize("edge", exchange_cases.EDGES)
 @pytest.mark.parametrize("refresh", [0, 1])
-def test_row_major_exchange_matches_jax(refresh):
+def test_row_major_exchange_matches_jax(refresh, edge):
     """K10 (the row-major exchange), one instance."""
-    args = _row_major(list(_exchange_inputs(refresh)))
+    args = _row_major(list(_exchange_inputs(refresh, edge)))
     want = j_atlas.conditional_slab_exchange(
         *[jnp.asarray(x) for x in args], jnp.int32(refresh),
         use_kernel=False)
@@ -197,9 +202,10 @@ def test_row_major_exchange_matches_jax(refresh):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_batched_row_major_exchange_matches_jax_vmap():
+@pytest.mark.parametrize("edge", exchange_cases.EDGES)
+def test_batched_row_major_exchange_matches_jax_vmap(edge):
     """K10 batched: each instance on its own flag."""
-    args = _row_major(_batched_exchange_inputs([0, 1, 1]))
+    args = _row_major(_batched_exchange_inputs([0, 1, 1], edge))
     want = jax.vmap(lambda *a: j_atlas.conditional_slab_exchange(
         *a, use_kernel=False))(*[jnp.asarray(x) for x in args])
     got = _vmap_np(atlas_kernels.conditional_slab_exchange, *args)

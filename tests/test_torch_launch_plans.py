@@ -246,8 +246,7 @@ def _replay_events(n=20):
             (f"{ns}sinkhorn_cluster<float, 8, 1>(...)", n),
             (f"{ns}moment_sort_reduce<float>(...)", 2 * n),
             (f"{ns}moment_gather<float>(...)", 2 * n),
-            (f"{ns}exchange_kernel<float, true>(...)", n // 10),
-            (f"{ns}exchange_kernel<float, false>(...)", n // 10),
+            (f"{ns}exchange_pass<float>(...)", n // 10),
             ("void at::native::elementwise_kernel<128, 2>(...)", 999)]
 
 
@@ -264,10 +263,10 @@ def test_reconcile_agrees_on_a_replay():
     rows = profile_replay.reconcile(_replay_events(), _replay_counters())
     assert {r["name"] for r in rows} == {
         "pe_kernel", "tail_kernel", "sinkhorn_cluster", "moment_sort_reduce",
-        "moment_gather", "exchange_kernel"}
+        "moment_gather", "exchange_pass"}
     assert all(r["agree"] for r in rows)
-    ex = [r for r in rows if r["name"] == "exchange_kernel"][0]
-    assert ex["profiler"] == ex["port"] == 4     # two launches per count
+    ex = [r for r in rows if r["name"] == "exchange_pass"][0]
+    assert ex["profiler"] == ex["port"] == 2     # one launch per count
 
 
 @pytest.mark.parametrize("where", ["profiler", "port"])
