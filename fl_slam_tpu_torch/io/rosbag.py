@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from fl_slam_tpu_torch import tracing
 from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.io import cdr, native
 
@@ -914,14 +915,16 @@ class StreamingStager:
         """Staging thread: stage the next segment into buffer ``slot``;
         returns its scan count (0 at the end)."""
         t0 = time.perf_counter()
-        blobs = next(batches, None)
+        with tracing.span("io.read"):
+            blobs = next(batches, None)
         if blobs is None:
             return 0
-        views = up.host(slot)
-        state["prev_t"] = self._stage(blobs, state["prev_t"], views)
-        n = len(blobs)
-        for v in views.values():                      # pad: repeat the last
-            v[n:] = v[n - 1]
+        with tracing.span("io.pack"):
+            views = up.host(slot)
+            state["prev_t"] = self._stage(blobs, state["prev_t"], views)
+            n = len(blobs)
+            for v in views.values():                  # pad: repeat the last
+                v[n:] = v[n - 1]
         self.stage_s.append(time.perf_counter() - t0)
         return n
 
@@ -942,7 +945,8 @@ class StreamingStager:
                     self.wait_s.pop()
                     break
                 n_total += n
-                seg = up.upload(slot)
+                with tracing.span("io.upload"):
+                    seg = up.upload(slot)
                 self.audit["staged_bytes"] += up.nbytes
                 slot = 1 - slot
                 fut = pool.submit(self._next, batches, state, up, slot)

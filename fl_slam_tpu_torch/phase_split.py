@@ -1,8 +1,7 @@
 """Where K1 (predict_evidence) and K2 (scalar_tail) spend their time, on one
 CUDA device.
 
-  python3 -m fl_slam_tpu_torch.phase_split [--src DIR] [--anchors current]
-                                           [--out FILE]
+  python3 -m fl_slam_tpu_torch.phase_split [--out FILE]
 
 Builds copies of the two kernels with a ``%globaltimer`` / ``clock64`` stamp
 before each anchor line (lane 0 of each of the first 8 warps of block 0
@@ -13,9 +12,7 @@ SASS instruction count of each instantiation, the device us per call of the
 unstamped kernel (torch.profiler) back to back, after a 256 MB memset (cold
 L2), after a sort (other kernels in between, as in the replay) and at
 B = 8, and the stamps (us after stamp 0, per warp) back to back, after a
-sort and inside a 30-scan replay. ``--anchors one_block`` stamps the
-one-block kernels of commit 2d97bdf (give their ``csrc`` with ``--src``).
-The stamped copies are scratch builds; the shipped kernels carry no stamp.
+sort and inside a 30-scan replay. The stamped copies are scratch builds; the shipped kernels carry no stamp.
 """
 
 from __future__ import annotations
@@ -81,30 +78,6 @@ CURRENT = {
         (r"^}$", "end")],
 }
 
-# The one-block kernels of commit 2d97bdf (512 threads, thread 0 runs the
-# scalar chain): the line before which each stamp goes.
-ONE_BLOCK = {
-    "predict_evidence": [
-        (106, "start"), (144, "t0: mean, sym inputs"), (164, "F Sigma F^T"),
-        (176, "sym + lift"), (178, "chol22"), (180, "22 solves"),
-        (197, "L_pred, h_pred"), (204, "chol6 + 6 solves"),
-        (231, "t0: predict certs, pose"), (297, "t0: odometry pose"),
-        (341, "t0: gravity"), (361, "t0: gyro"), (393, "t0: preintegration"),
-        (418, "t0: accel bias"), (431, "t0: planar"), (494, "t0: twist"),
-        (511, "t0: IW suffstats"), (522, "t0: effect pairs"),
-        (524, "barrier"), (541, "h_io, sym, rhs"), (542, "chol22 #2"),
-        (551, "t0: solve1, pose")],
-    "scalar_tail": [
-        (97, "start"), (121, "assembly"), (175, "t0: temper, alpha"),
-        (186, "fusion"), (187, "chol6"), (194, "L_post out"),
-        (202, "sym, [h | I]"), (204, "chol22"), (206, "23 solves"),
-        (215, "Sigma, dz"), (255, "t0: recompose, drift"),
-        (277, "h_fin, mu_next, L_bar"), (278, "chol22 #2"),
-        (284, "t0: solve22 + solve6"), (304, "t0: anchor effect"),
-        (320, "t0: visual, poses"), (368, "t0: IW process"),
-        (392, "t0: IW meas"), (407, "t0: certs")],
-}
-
 _STAMP = r'''
 #ifndef STAMP_BLOCK
 #define STAMP_BLOCK 0
@@ -131,8 +104,6 @@ _KERNELS = {"predict_evidence": (0, "pe_kernel"),
 
 def stamp_lines(source: str, anchors) -> list:
     """Line numbers (1-based) before which the stamps go."""
-    if isinstance(anchors[0][0], int):
-        return [ln for ln, _ in anchors]
     lines = source.split("\n")
     pos = next(i for i, l in enumerate(lines) if "__global__" in l)
     out = []
@@ -257,15 +228,12 @@ def main() -> int:
     from fl_slam_tpu_torch.runtime import configure_numerics
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--src", type=Path, default=cuda_build.CSRC)
-    ap.add_argument("--anchors", choices=("current", "one_block"),
-                    default="current")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("phase_split: no CUDA device")
     configure_numerics()
-    anchors = CURRENT if args.anchors == "current" else ONE_BLOCK
+    src = cuda_build.CSRC
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -280,12 +248,12 @@ def main() -> int:
            "scalar_tail": bk.scalar_tail_packed}
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=cuda_build.BUILD_DIR))
-    res = {"card": card, "src": str(args.src), "anchors": args.anchors}
+    res = {"card": card}
     libs, lines = {}, {}
     for name, (k, sym) in _KERNELS.items():
-        source = (args.src / f"{name}.cu").read_text()
+        source = (src / f"{name}.cu").read_text()
         so = work / f"{name}.so"
-        log = _nvcc(args.src, name, args.src / f"{name}.cu", so,
+        log = _nvcc(src, name, src / f"{name}.cu", so,
                     ("-Xptxas", "-v"))
         r = {"ptxas": [l.strip() for l in log.splitlines()
                        if "Used" in l or "stack frame" in l],
@@ -303,15 +271,15 @@ def main() -> int:
         xb = [torch.stack([t.to(dev, torch.float32)] * 8) for t in ops[k]]
         r["device_us_float32"]["batched_8"] = _device_us(
             lambda: torch.func.vmap(lambda *a: fn(cfg, *a))(*xb), sym)
-        lines[name] = stamp_lines(source, anchors[name])
+        lines[name] = stamp_lines(source, CURRENT[name])
         cu = work / f"{name}_stamped.cu"
         cu.write_text(stamped_source(source, lines[name]))
-        _nvcc(args.src, name, cu, work / f"{name}_stamped.so")
+        _nvcc(src, name, cu, work / f"{name}_stamped.so")
         lib = cuda_build.bind(ctypes.CDLL(str(work / f"{name}_stamped.so")),
                               name)
         libs[name] = lib
         cuda_build._LIBS[name] = lib
-        labels = [label for _, label in anchors[name]]
+        labels = [label for _, label in CURRENT[name]]
         x = [t.to(dev, torch.float32) for t in ops[k]]
         for setting, before in (("back_to_back", None), ("after_sort", sort)):
             runs = []
@@ -346,7 +314,7 @@ def main() -> int:
         bk.scalar_tail_packed = fns["scalar_tail"]
     for name in _KERNELS:
         res[name]["stamps_us_in_replay"] = _median(
-            runs[name][10:], [label for _, label in anchors[name]])
+            runs[name][10:], [label for _, label in CURRENT[name]])
     text = json.dumps(res, indent=1)
     if args.out is not None:
         args.out.write_text(text)

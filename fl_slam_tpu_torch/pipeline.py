@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fl_slam_tpu_torch import tracing
 from fl_slam_tpu_torch.config import (D_Z, GRAVITY_W, IDX_BA, IDX_BG, IDX_DT,
                                       IDX_POSE, IDX_VEL, GCConfig)
 from fl_slam_tpu_torch.core import se3
@@ -297,9 +298,12 @@ def process_scan(state: PipelineState, scan: ScanInput, cfg: GCConfig,
     """One full scan at per-scan refresh cadence."""
     dev = resolve_device(device)
     _on(dev, state.slabs.ff, scan.points)
-    state, ctx = _chunk_begin(state, cfg, gamma_power=1)
-    state, ctx, out = _scan_core(state, ctx, scan, cfg)
-    return _chunk_end(state, ctx, cfg), out
+    with tracing.span("pipeline.chunk_begin"):
+        state, ctx = _chunk_begin(state, cfg, gamma_power=1)
+    with tracing.span("pipeline.scan_core"):
+        state, ctx, out = _scan_core(state, ctx, scan, cfg)
+    with tracing.span("pipeline.chunk_end"):
+        return _chunk_end(state, ctx, cfg), out
 
 
 def make_step(cfg: GCConfig, device=None):
@@ -315,7 +319,8 @@ def make_step(cfg: GCConfig, device=None):
     dev = resolve_device(device)
 
     def step(state, scan):
-        return process_scan(state, scan, cfg, device=dev)
+        with tracing.span("pipeline.step"):
+            return process_scan(state, scan, cfg, device=dev)
 
     return step
 
@@ -520,8 +525,10 @@ def _bank_tail(state, cfg, bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k,
         _fuse_and_recompose, L_vis=L_vis, h_vis_rel=h_vis_rel,
         ess_imu=ess_imu, ot_ess=ot_ess, ot_cost=ot_cost, grav_proj=grav_proj,
         cfg=cfg)
-    bel_rec_k, z_lin_new_k, dz_new_k, dpsi_q_k, dnu_q_k, kc = \
-        torch.func.vmap(fuse)(bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k)
+    with tracing.vmap_fallbacks():
+        bel_rec_k, z_lin_new_k, dz_new_k, dpsi_q_k, dnu_q_k, kc = \
+            torch.func.vmap(fuse)(bel_pred_k, mu_pred_k, L_io_k, h_io_k,
+                                  z_lin_k)
     certs.update(_vmap_certs(kc))
     mht = mht_enabled(cfg)
     if mht:
@@ -548,16 +555,19 @@ def _bank_tail(state, cfg, bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k,
     drift = functools.partial(
         recompose_ops.anchor_drift_update, m0=cfg.anchor_drift_m0,
         r0=cfg.anchor_drift_r0, eps_lift=cfg.eps_lift)
-    bel_fin_k, z_drift_k, c = torch.func.vmap(
-        lambda b, z, d: drift(b, z, dz=d))(bel_rec_k, z_lin_new_k, dz_new_k)
+    with tracing.vmap_fallbacks():
+        bel_fin_k, z_drift_k, c = torch.func.vmap(
+            lambda b, z, d: drift(b, z, dz=d))(bel_rec_k, z_lin_new_k,
+                                               dz_new_k)
     certs.update(_vmap_certs(c))
     h_bar_in, z_bar_in, means_in = bel_fin_k.h, z_lin_new_k, z_drift_k
     if mht:
         # Carry each hypothesis into hypothesis 0's chart before the
         # average (first order: z' = z + Log(X_a0^-1 X_ak)).
         anchors = bel_fin_k.anchor
-        xi_k = torch.func.vmap(lambda a: se3.pose7_minus(a, anchors[0]))(
-            anchors)
+        with tracing.vmap_fallbacks():
+            xi_k = torch.func.vmap(
+                lambda a: se3.pose7_minus(a, anchors[0]))(anchors)
         e_k = torch.cat([xi_k, torch.zeros_like(z_lin_new_k[:, 6:])], 1)
         h_bar_in = h_bar_in + torch.einsum("kij,kj->ki", bel_fin_k.L, e_k)
         z_bar_in, means_in = z_bar_in + e_k, means_in + e_k
@@ -588,7 +598,8 @@ def _bank_tail(state, cfg, bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k,
 def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
                cfg: GCConfig):
     """One scan against the chunk's resident view (either belief branch,
-    either view)."""
+    either view). Each numbered step is a ``scan.*`` span while tracing."""
+    lap = tracing.laps("scan.imu")
     dt = cfg.torch_dtype
     certs: dict = dict(ctx.certs)
     seq = state.scan_seq
@@ -645,6 +656,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         eps_mass=cfg.eps_mass, eps_psd=cfg.eps_psd)
 
     # ---- step 5: deskew -------------------------------------------------------
+    lap("scan.deskew")
     xi_body = pre_scan["delta_pose"]
     xi_body = torch.cat([xi_body[:3] * (0.0 if cfg.deskew_rotation_only
                                         else 1.0), xi_body[3:]])
@@ -655,6 +667,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
     certs.update(c)
 
     # ---- steps 2 + 6: predict + IMU/odometry evidence per hypothesis -------
+    lap("scan.predict")
     first_scan = state.scan_seq == 0
     kernels = belief_kernels.use_belief_kernels(cfg)
     if kernels:
@@ -699,8 +712,9 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
             dt_imu=dt_imu, w_int=w_int, accel_bias=accel_bias,
             gravity_w=gravity_w, omega_avg=omega_avg, pre_int=pre_int,
             odom_prev6=state.odom_prev6, first_scan=first_scan)
-        bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k, dz_odom_k, kc = \
-            torch.func.vmap(pe)(state.belief, state.mu, state.Sigma)
+        with tracing.vmap_fallbacks():
+            bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k, dz_odom_k, kc = \
+                torch.func.vmap(pe)(state.belief, state.mu, state.Sigma)
         certs.update(_vmap_certs(kc))
         bel_pred = Belief(*[x[0] for x in bel_pred_k])
         z_lin, dz_odom = z_lin_k[0], dz_odom_k[0]
@@ -712,6 +726,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
             eps_mass=cfg.eps_mass, eps_psd=cfg.eps_psd)
 
     # ---- step 7: map branch ---------------------------------------------------
+    lap("scan.associate")
     surf, c = surfel_ops.extract_surfels(points_dsk, w_dsk, cfg)
     certs.update(c)
     batch = mb.from_slices(cfg, lidar=surf, cam=dict(
@@ -731,6 +746,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
     certs.update(c)
 
     # ---- step 8: visual pose evidence at z_lin -------------------------------
+    lap("scan.visual")
     L_vis, h_vis_rel, c = visual_pose_evidence(
         mu_w, batch_w.Lambdas, dir_w, kap, batch_w.valid, assoc, view,
         z_lin_pose, cfg, scan_seq=seq)
@@ -742,6 +758,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         r_lidar / row_m[:, None], assoc.row_masses, cfg.eps_mass, cfg.eps_psd)
 
     # ---- steps 9-15 + IW apply --------------------------------------------
+    lap("scan.tail")
     if kernels:
         # K2: the scalar tail off one factorization. cond feeds a cert and
         # the trust alpha; it is computed outside on the untempered evidence.
@@ -776,6 +793,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         R_zt = None
 
     # ---- step 12b: map update at z_t -----------------------------------------
+    lap("scan.map_update")
     batch_t = mb.transform_to_world(batch, z_t, eps_lift=cfg.eps_lift, R=R_zt)
     rows, c = atlas_ops.compact_fuse(view, batch_t, assoc.responsibilities,
                                      assoc.cand_view_idx, assoc.cand_valid,
@@ -815,6 +833,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
         process_noise=proc_noise, meas_noise=meas_noise, slabs=sff,
         scan_seq=seq + 1, prev_scan_t=scan.scan_start,
         odom_prev6=scan.odom_pose)
+    lap.close()
     return new_state, ctx, ScanOutput(pose=pose_out, stamp=scan.scan_start,
                                       certs=certs)
 
@@ -828,42 +847,51 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
     """Chunked replay over a stacked ScanInput (leading time axis T).
 
     Chunks of R = ``view_refresh_every`` scans (the largest divisor of T
-    not above it): ``_chunk_begin``, R x ``_scan_core``, ``_chunk_end``.
-    Returns (final state with the slabs flushed, ScanOutput with (T, ...)
-    fields and certs {name: (T,)})."""
-    dev = resolve_device(device)
-    _on(dev, state.slabs.ff, scans.points)
-    T = scans.scan_start.shape[0]
-    R = max(1, int(cfg.view_refresh_every))
-    while T % R != 0:
-        R -= 1
-    poses, stamps, packed = [], [], []
-    scalar_keys = packed_keys = names = None
-    for c0 in range(0, T, R):
-        state, ctx = _chunk_begin(state, cfg, gamma_power=R)
-        for i in range(c0, c0 + R):
-            state, ctx, out = _scan_core(state, ctx, _scan_at(scans, i), cfg)
-            if names is None:
-                # Kernel cert vectors (``__packed__:*``) are spliced as they
-                # are and named from their registered groups.
-                scalar_keys = sorted(k for k in out.certs
-                                     if not k.startswith("__packed__:"))
-                packed_keys = sorted(k for k in out.certs
-                                     if k.startswith("__packed__:"))
-                names = scalar_keys + [
-                    n for k in packed_keys
-                    for n in belief_kernels.PACKED_CERT_GROUPS[k]]
-            poses.append(out.pose)
-            stamps.append(out.stamp)
-            packed.append(torch.cat([torch.stack([
-                torch.as_tensor(out.certs[k], dtype=cfg.torch_dtype,
-                                device=dev).reshape(()) for k in scalar_keys])]
-                + [out.certs[k].to(cfg.torch_dtype) for k in packed_keys]))
-        state = _chunk_end(state, ctx, cfg)
-    certs_tc = torch.stack(packed)
-    certs = {k: certs_tc[:, j] for j, k in enumerate(names)}
-    return flush_slabs(state, dev), ScanOutput(
-        pose=torch.stack(poses), stamp=torch.stack(stamps), certs=certs)
+    not above it): ``_chunk_begin``, R x ``_scan_core``, ``_chunk_end``;
+    then every scan's certificates and pose are stacked and the slabs
+    flushed. Returns (final state with the slabs flushed, ScanOutput with
+    (T, ...) fields and certs {name: (T,)})."""
+    with tracing.span("pipeline.replay"):
+        dev = resolve_device(device)
+        _on(dev, state.slabs.ff, scans.points)
+        T = scans.scan_start.shape[0]
+        R = max(1, int(cfg.view_refresh_every))
+        while T % R != 0:
+            R -= 1
+        outs = []
+        for c0 in range(0, T, R):
+            with tracing.span("pipeline.chunk_begin"):
+                state, ctx = _chunk_begin(state, cfg, gamma_power=R)
+            for i in range(c0, c0 + R):
+                with tracing.span("pipeline.scan_core"):
+                    state, ctx, out = _scan_core(state, ctx,
+                                                 _scan_at(scans, i), cfg)
+                outs.append(out)
+            with tracing.span("pipeline.chunk_end"):
+                state = _chunk_end(state, ctx, cfg)
+        with tracing.span("pipeline.pack"):
+            out = _stack_outputs(outs, cfg, dev)
+        with tracing.span("pipeline.flush"):
+            return flush_slabs(state, dev), out
+
+
+def _stack_outputs(outs: list, cfg: GCConfig, dev) -> ScanOutput:
+    """Per-scan outputs -> one ScanOutput with (T, ...) fields. Kernel cert
+    vectors (``__packed__:*``) are spliced as they are and named from
+    their registered groups."""
+    certs0 = outs[0].certs
+    scalar_keys = sorted(k for k in certs0 if not k.startswith("__packed__:"))
+    packed_keys = sorted(k for k in certs0 if k.startswith("__packed__:"))
+    names = scalar_keys + [n for k in packed_keys
+                           for n in belief_kernels.PACKED_CERT_GROUPS[k]]
+    certs_tc = torch.stack([torch.cat([torch.stack([
+        torch.as_tensor(o.certs[k], dtype=cfg.torch_dtype,
+                        device=dev).reshape(()) for k in scalar_keys])]
+        + [o.certs[k].to(cfg.torch_dtype) for k in packed_keys])
+        for o in outs])
+    return ScanOutput(pose=torch.stack([o.pose for o in outs]),
+                      stamp=torch.stack([o.stamp for o in outs]),
+                      certs={k: certs_tc[:, j] for j, k in enumerate(names)})
 
 
 def replay_jit(cfg: GCConfig, device=None):

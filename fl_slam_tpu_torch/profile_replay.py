@@ -11,12 +11,17 @@ odometry scans (seed 3) after a warm-up replay, and prints one JSON line per
 configuration (``--select-kernel on`` adds ``select_kernel=True``: K9 in
 the association): the host-clock ms/scan of 3 unprofiled replays, then, from
 one replay under ``torch.profiler`` (CUDA activity only), the device kernel
-time per scan, the kernel launches per scan, the device busy share against
-the median unprofiled wall time, and the kernels that take the most device
+time per scan, the kernel launches per scan, the device busy share over
+that replay's own span (its first launch to its last device completion,
+from the profiler's raw records), the kernels that take the most device
 time, among them each hand-written kernel of the port (device us per
-call), and each port kernel's launches as the profiler counted them
+call), each port kernel's launches as the profiler counted them
 beside the port's own ``launches`` counters from the same replay
-(``port_counts``; the script exits non-zero when they differ). With
+(``port_counts``; the script exits non-zero when they differ), the host ms
+of each of the port's spans (``tracing``: total and self, per scan), and
+every device-idle gap of 0.5 ms or more named by the innermost span it
+falls in, with the share of the idle time that no span below a root call
+(``pipeline.replay``) covers. With
 ``--instances B`` (B > 1) it profiles the instance-batched
 replay (``parallel.replicas.batched_replay``) of B instances (seeds 3 ..
 3 + B - 1) the same way: every per-scan figure is then per batched scan,
@@ -108,6 +113,100 @@ def _trailer() -> None:
     time.sleep(0.2)
 
 
+def device_records(events) -> tuple:
+    """(device records [(name, start_ns, end_ns)] without the trailer, the
+    host launch records' start times) of the profiler's raw records."""
+    from torch.autograd import DeviceType
+    dev, launches = [], []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            if _TRAILER not in e.name():
+                dev.append((e.name(), e.start_ns(),
+                            e.start_ns() + e.duration_ns()))
+        elif e.name().startswith("cu") and "Launch" in e.name():
+            launches.append(e.start_ns())
+    return dev, launches
+
+
+def _union(intervals) -> list:
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap(a: int, b: int, merged) -> int:
+    return sum(max(0, min(b, e) - max(a, s)) for s, e in merged)
+
+
+def busy_share(dev, t0: int) -> float:
+    """The share of [t0, the last device completion] in which some device
+    record ran."""
+    end = max(e for _, _, e in dev)
+    busy = sum(e - s for s, e in _union((s, e) for _, s, e in dev))
+    return busy / (end - t0)
+
+
+def _depths(spans) -> dict:
+    by_id = {s.id: s for s in spans}
+    depth = {}
+    for s in spans:
+        d, p = 0, s.parent
+        while p in by_id:
+            d, p = d + 1, by_id[p].parent
+        depth[s.id] = d
+    return depth
+
+
+def host_ms_by_span(spans, n_scans: int) -> dict:
+    """{name: {total, self (total less the time its children cover),
+    count}} of the port's spans, ms per scan."""
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent, []).append((s.start_ns, s.end_ns))
+    out = {}
+    for s in spans:
+        row = out.setdefault(s.name, {"total_ms_per_scan": 0.0,
+                                      "self_ms_per_scan": 0.0, "count": 0})
+        dur = s.end_ns - s.start_ns
+        covered = _overlap(s.start_ns, s.end_ns,
+                           _union(kids.get(s.id, ())))
+        row["total_ms_per_scan"] += dur * 1e-6 / n_scans
+        row["self_ms_per_scan"] += (dur - covered) * 1e-6 / n_scans
+        row["count"] += 1
+    return out
+
+
+def idle_gaps(dev, t0: int, spans, min_ms: float = 0.5) -> tuple:
+    """(every device-idle gap in [t0, the last device completion] of at
+    least ``min_ms``, longest first, each named by the innermost span
+    that holds its midpoint ("none" outside every span); the share of all
+    idle time that no span below a root covers)."""
+    busy = _union((s, e) for _, s, e in dev)
+    gaps, cur = [], t0
+    for s, e in busy:
+        if s > cur:
+            gaps.append((cur, s))
+        cur = max(cur, e)
+    depth = _depths(spans)
+    below = _union((s.start_ns, s.end_ns) for s in spans if depth[s.id])
+    idle = sum(b - a for a, b in gaps)
+    uncovered = sum((b - a) - _overlap(a, b, below) for a, b in gaps)
+    named = []
+    for a, b in sorted(gaps, key=lambda g: g[0] - g[1]):
+        if (b - a) * 1e-6 < min_ms:
+            break
+        mid = (a + b) // 2
+        inner = max((s for s in spans if s.start_ns <= mid <= s.end_ns),
+                    key=lambda s: depth[s.id], default=None)
+        named.append({"ms": (b - a) * 1e-6, "at_ms": (a - t0) * 1e-6,
+                      "span": inner.name if inner else "none"})
+    return named, (uncovered / idle if idle else 0.0)
+
+
 def _counters() -> dict:
     from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
                                        surfel_kernels)
@@ -147,6 +246,7 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1,
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from fl_slam_tpu_torch import tracing
     from fl_slam_tpu_torch.config import GCConfig
 
     cfg = GCConfig.tpu(belief_kernel=belief_kernel,
@@ -170,6 +270,7 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1,
     for c in counters.values():
         for k in c:
             c[k] = 0
+    tracing.reset()
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         replay(st, scans)
         torch.cuda.synchronize()
@@ -181,7 +282,10 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1,
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     own = [e for e in kernels if own_kernel(e.key) is not None]
     counts = reconcile([(e.key, e.count) for e in kernels], counters)
-    wall = sorted(walls)[len(walls) // 2]
+    spans = tracing.spans()
+    dev, launches = device_records(prof.profiler.kineto_results.events())
+    t0 = min(launches) if launches else min(s for _, s, _ in dev)
+    gaps, uncovered = idle_gaps(dev, t0, spans)
     args = ([] if belief_kernel else ["belief_kernel=False"]) + (
         ["select_kernel=True"] if select_kernel else [])
     label = f"GCConfig.tpu({', '.join(args)})"
@@ -191,7 +295,7 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1,
         "wall_ms_per_scan": walls,
         "device_kernel_ms_per_scan": dev_ms / N_SCANS,
         "kernel_launches_per_scan": n_launch / N_SCANS,
-        "device_busy_share": dev_ms / N_SCANS / wall,
+        "device_busy_share": busy_share(dev, t0),
         "top_kernels": [{"name": e.key[:80],
                          "ms_per_scan": e.self_device_time_total / 1e3
                          / N_SCANS,
@@ -202,7 +306,11 @@ def profile(belief_kernel: bool, card: str, n_instances: int = 1,
                           "calls_per_scan": e.count / N_SCANS}
                          for e in own],
         "port_counts": counts,
-        "counts_agree": all(r["agree"] for r in counts)}
+        "counts_agree": all(r["agree"] for r in counts),
+        "host_ms_by_span": host_ms_by_span(spans, N_SCANS),
+        "idle_gaps": gaps,
+        "idle_share_outside_spans": uncovered,
+        "spans_dropped": tracing.dropped()}
 
 
 def main() -> None:

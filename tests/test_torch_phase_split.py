@@ -33,12 +33,6 @@ def test_stamped_copy_has_one_stamp_per_anchor(name):
     assert unstamped.replace("\n" + phase_split._STAMP, "", 1) == source
 
 
-@pytest.mark.parametrize("name", KERNELS)
-def test_one_block_lines_are_increasing(name):
-    lines = phase_split.stamp_lines("", phase_split.ONE_BLOCK[name])
-    assert lines == sorted(set(lines))
-
-
 def test_missing_anchor_raises():
     with pytest.raises(ValueError, match="not found"):
         phase_split.stamp_lines("__global__ void k() {\n}\n",
