@@ -1541,10 +1541,13 @@ _CAPTURED = (("ops.belief_kernels", "predict_evidence_packed"),
 def _capture(run) -> dict:
     """The operands K1, K2, K3 and K4 (fuse site) receive at their last
     call in ``run()`` (copied on the way in): {attribute: (args,
-    kwargs)}."""
+    kwargs)}. ``run()``'s pipeline phases run eagerly: a CUDA graph replay
+    calls no Python wrapper."""
     import importlib
 
     import torch
+
+    from fl_slam_tpu_torch import graphs
 
     seen = {}
 
@@ -1561,9 +1564,12 @@ def _capture(run) -> dict:
     originals = [getattr(m, name) for m, name in mods]
     for (m, name), fn in zip(mods, originals):
         setattr(m, name, hooked(fn, name))
+    reason = graphs.eager_reason
+    graphs.eager_reason = lambda dev: "hooked"
     try:
         run()
     finally:
+        graphs.eager_reason = reason
         for (m, name), fn in zip(mods, originals):
             setattr(m, name, fn)
     return seen
@@ -1963,12 +1969,16 @@ def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
     import re
 
     import torch
-    from fl_slam_tpu_torch import certs
+    from fl_slam_tpu_torch import certs, graphs
     from fl_slam_tpu_torch.io.synthetic import to_scan_inputs
     from fl_slam_tpu_torch.ops.belief_kernels import use_belief_kernels
     from fl_slam_tpu_torch.parallel import replicas
     from fl_slam_tpu_torch.pipeline import init_state, replay
 
+    # The graphs of the single-instance replays before keep their static
+    # buffers (a state, ~0.47 GB, a lineage); the batched replay runs
+    # eagerly under vmap and uses none, so they go before its peak is read.
+    graphs.clear()
     B, R = len(dss), cfg.view_refresh_every
     t0 = time.perf_counter()
     mesh = replicas.make_mesh()

@@ -151,12 +151,25 @@ def _sass_counts(so: Path) -> dict:
     return counts
 
 
+def _eager_replay(state, scans, cfg):
+    """``pipeline.replay`` with its phases run eagerly, so that hooks on
+    the kernel wrappers see every call (a CUDA graph replay calls none)."""
+    from fl_slam_tpu_torch import graphs
+    from fl_slam_tpu_torch.pipeline import replay
+    reason = graphs.eager_reason
+    graphs.eager_reason = lambda dev: "hooked"
+    try:
+        return replay(state, scans, cfg)
+    finally:
+        graphs.eager_reason = reason
+
+
 def _captured_operands(cfg):
     """The operands K1 and K2 receive on the last scan of a 10-scan replay
     (seed 4), copied on the way in."""
     from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
     from fl_slam_tpu_torch.ops import belief_kernels as bk
-    from fl_slam_tpu_torch.pipeline import init_state, replay
+    from fl_slam_tpu_torch.pipeline import init_state
 
     seen = {}
     fns = (bk.predict_evidence_packed, bk.scalar_tail_packed)
@@ -171,9 +184,9 @@ def _captured_operands(cfg):
     bk.predict_evidence_packed, bk.scalar_tail_packed = (
         hook(0, fns[0]), hook(1, fns[1]))
     try:
-        replay(init_state(cfg, anchor0=ds.gt_poses[0],
-                          t0=float(ds.gt_stamps[0]) - 0.1),
-               to_scan_inputs(ds, cfg), cfg)
+        _eager_replay(init_state(cfg, anchor0=ds.gt_poses[0],
+                                 t0=float(ds.gt_stamps[0]) - 0.1),
+                      to_scan_inputs(ds, cfg), cfg)
     finally:
         bk.predict_evidence_packed, bk.scalar_tail_packed = fns
     return seen[0], seen[1]
@@ -292,7 +305,7 @@ def main() -> int:
         res[name] = r
     # Inside a replay: the stamps of every call after the first 10 scans.
     from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
-    from fl_slam_tpu_torch.pipeline import init_state, replay
+    from fl_slam_tpu_torch.pipeline import init_state
     runs = {name: [] for name in _KERNELS}
 
     def hook(name):
@@ -306,9 +319,9 @@ def main() -> int:
     bk.predict_evidence_packed = hook("predict_evidence")
     bk.scalar_tail_packed = hook("scalar_tail")
     try:
-        replay(init_state(cfg, anchor0=ds.gt_poses[0],
-                          t0=float(ds.gt_stamps[0]) - 0.1),
-               to_scan_inputs(ds, cfg), cfg)
+        _eager_replay(init_state(cfg, anchor0=ds.gt_poses[0],
+                                 t0=float(ds.gt_stamps[0]) - 0.1),
+                      to_scan_inputs(ds, cfg), cfg)
     finally:
         bk.predict_evidence_packed = fns["predict_evidence"]
         bk.scalar_tail_packed = fns["scalar_tail"]

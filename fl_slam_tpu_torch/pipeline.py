@@ -21,9 +21,16 @@ value on the host: the chunk-boundary ``refresh`` flag stays a device tensor
 that the slab-exchange kernel (K5) reads, and the first-scan flag of the
 relative odometry factor is a device value.
 
+On a CUDA device the three phases run as replays of CUDA graphs
+(``graphs``), captured at the first call of their key; on the CPU and under
+``torch.func.vmap`` they run eagerly.
+
 State ownership: ``replay`` / ``process_scan`` consume the state they are
 given. The tile pool and the resident slabs are updated in place (the
-reference donates them to the compiled replay the same way).
+reference donates them to the compiled replay the same way). On a CUDA
+device the state they return lives in their graphs' static buffers, which
+the next call of the same key overwrites, also when that call starts from
+another state (see ``graphs``).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fl_slam_tpu_torch import tracing
+from fl_slam_tpu_torch import graphs, tracing
 from fl_slam_tpu_torch.config import (D_Z, GRAVITY_W, IDX_BA, IDX_BG, IDX_DT,
                                       IDX_POSE, IDX_VEL, GCConfig)
 from fl_slam_tpu_torch.core import se3
@@ -298,12 +305,13 @@ def process_scan(state: PipelineState, scan: ScanInput, cfg: GCConfig,
     """One full scan at per-scan refresh cadence."""
     dev = resolve_device(device)
     _on(dev, state.slabs.ff, scan.points)
+    ph = _phases(state, scan, cfg, dev)
     with tracing.span("pipeline.chunk_begin"):
-        state, ctx = _chunk_begin(state, cfg, gamma_power=1)
+        state, ctx = ph.begin(state, 1)
     with tracing.span("pipeline.scan_core"):
-        state, ctx, out = _scan_core(state, ctx, scan, cfg)
+        state, ctx, out = ph.core(state, ctx, scan)
     with tracing.span("pipeline.chunk_end"):
-        return _chunk_end(state, ctx, cfg), out
+        return ph.end(state, ctx), out
 
 
 def make_step(cfg: GCConfig, device=None):
@@ -313,9 +321,14 @@ def make_step(cfg: GCConfig, device=None):
 
     The reference donates the state (``donate_argnums=(0,)``); here the
     step consumes it the same way: the tile pool and the resident slabs are
-    updated in place, so the state passed in must not be used again. Nothing
-    is compiled: the step runs the same eager launches as ``process_scan``
-    (a CUDA graph of a chunk is perf work outside the port)."""
+    updated in place, so the state passed in must not be used again. On a
+    CUDA device each phase is the replay of a CUDA graph, captured at the
+    first call of its key (``graphs``): the state the step returns lives in
+    the graphs' static buffers, and the next call of the same key
+    overwrites it, also when that call starts from another state (a fresh
+    ``init_state`` is copied in). Pass back the state the step returned and
+    nothing is copied. The returned ``ScanOutput`` is the caller's: no later
+    call writes it."""
     dev = resolve_device(device)
 
     def step(state, scan):
@@ -598,7 +611,9 @@ def _bank_tail(state, cfg, bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k,
 def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
                cfg: GCConfig):
     """One scan against the chunk's resident view (either belief branch,
-    either view). Each numbered step is a ``scan.*`` span while tracing."""
+    either view). Each numbered step is a ``scan.*`` span while tracing;
+    on a CUDA device the steps run only while the phase's graph is
+    captured, so a replay records none of them."""
     lap = tracing.laps("scan.imu")
     dt = cfg.torch_dtype
     certs: dict = dict(ctx.certs)
@@ -838,6 +853,13 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
                                       certs=certs)
 
 
+def _phases(state, scan, cfg, dev):
+    """The runner of the three phases for this call (``graphs.phases``);
+    the phase functions are looked up at each call."""
+    return graphs.phases(graphs.Phases(_chunk_begin, _scan_core, _chunk_end),
+                         state, scan, cfg, dev)
+
+
 def _scan_at(scans: ScanInput, i: int) -> ScanInput:
     return ScanInput(*[f[i] for f in scans])
 
@@ -850,7 +872,12 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
     not above it): ``_chunk_begin``, R x ``_scan_core``, ``_chunk_end``;
     then every scan's certificates and pose are stacked and the slabs
     flushed. Returns (final state with the slabs flushed, ScanOutput with
-    (T, ...) fields and certs {name: (T,)})."""
+    (T, ...) fields and certs {name: (T,)}).
+
+    On a CUDA device the phases replay CUDA graphs (``graphs``): the
+    returned state lives in their static buffers, which the next call of the
+    same key overwrites, also when it starts from another state; the
+    returned ScanOutput is the caller's."""
     with tracing.span("pipeline.replay"):
         dev = resolve_device(device)
         _on(dev, state.slabs.ff, scans.points)
@@ -858,17 +885,17 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
         R = max(1, int(cfg.view_refresh_every))
         while T % R != 0:
             R -= 1
+        ph = _phases(state, _scan_at(scans, 0), cfg, dev)
         outs = []
         for c0 in range(0, T, R):
             with tracing.span("pipeline.chunk_begin"):
-                state, ctx = _chunk_begin(state, cfg, gamma_power=R)
+                state, ctx = ph.begin(state, R)
             for i in range(c0, c0 + R):
                 with tracing.span("pipeline.scan_core"):
-                    state, ctx, out = _scan_core(state, ctx,
-                                                 _scan_at(scans, i), cfg)
+                    state, ctx, out = ph.core(state, ctx, _scan_at(scans, i))
                 outs.append(out)
             with tracing.span("pipeline.chunk_end"):
-                state = _chunk_end(state, ctx, cfg)
+                state = ph.end(state, ctx)
         with tracing.span("pipeline.pack"):
             out = _stack_outputs(outs, cfg, dev)
         with tracing.span("pipeline.flush"):
@@ -898,7 +925,9 @@ def replay_jit(cfg: GCConfig, device=None):
     """``run(state, scans) -> (final state, ScanOutput)``: ``replay`` with
     ``cfg`` and the device bound (the reference's jitted replay,
     ``fl_slam_tpu/pipeline.py:1118``). The state is consumed, as under the
-    reference's donation, and nothing is compiled (see ``make_step``)."""
+    reference's donation; on a CUDA device the returned state lives in the
+    phases' graph buffers, which the next call of the same key overwrites
+    (see ``make_step`` and ``graphs``)."""
     dev = resolve_device(device)
 
     def run(state, scans):

@@ -23,13 +23,18 @@ Span names (the layer boundaries):
   stacked) and ``pipeline.flush`` below it;
 - ``scan.imu``, ``scan.deskew``, ``scan.predict``, ``scan.associate``,
   ``scan.visual``, ``scan.tail``, ``scan.map_update``: the numbered steps
-  of one ``pipeline.scan_core``;
+  of one ``pipeline.scan_core`` (on a CUDA device only while its graph is
+  captured: a graph replay runs no Python);
 - ``io.read``, ``io.pack`` (the staging thread) and ``io.upload`` (the
   caller's thread) of ``io.rosbag.StreamingStager``.
 
 Counter ``vmap.fallback``, keyed by operator: ``torch.func.vmap``'s
 per-instance fallbacks (an operator with no batching rule) inside the
-hypothesis bank's ``vmap`` calls (``vmap_fallbacks``).
+hypothesis bank's ``vmap`` calls (``vmap_fallbacks``). Counters
+``graph.replay`` and ``graph.capture``, keyed by phase (``chunk_begin``,
+``scan_core``, ``chunk_end``), and ``graph.eager``, keyed by the reason a
+phase call stayed eager (``cpu``, ``functorch``): the pipeline's phase
+calls (``graphs``).
 """
 
 from __future__ import annotations

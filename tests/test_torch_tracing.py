@@ -300,8 +300,10 @@ def test_vmap_fallbacks_are_counted_and_the_flag_restored(before):
 def test_launches_fall_inside_their_spans(cuda):
     """On the card, under a CUDA-activity profile: each ``exchange_pass``
     launch lies inside a ``pipeline.chunk_begin`` span and each
-    ``sinkhorn_cluster`` launch inside a ``scan.associate`` span; poses and
-    certificates match an untraced replay bit for bit."""
+    ``sinkhorn_cluster`` launch inside a ``pipeline.scan_core`` span (the
+    replay of the phase's CUDA graph, whose kernels carry the graph
+    launch's correlation id); poses and certificates match an untraced
+    replay bit for bit."""
     cfg = GCConfig.tpu()
     ds, scans = _sequence(cfg, cuda, n=20)
     st, plain = tp.replay(_fresh(cfg, ds, cuda), scans, cfg)
@@ -324,7 +326,7 @@ def test_launches_fall_inside_their_spans(cuda):
                  and "Launch" in e.name()}
     spans = tracing.spans()
     for sym, where, n in (("exchange_pass", "pipeline.chunk_begin", 2),
-                          ("sinkhorn_cluster", "scan.associate", 20)):
+                          ("sinkhorn_cluster", "pipeline.scan_core", 20)):
         # K5 once a chunk (R = 10), K3 once a scan
         sp = [s for s in spans if s.name == where]
         kernels = [e for e in events
