@@ -49,11 +49,14 @@ Phases (any failure raises and the script exits non-zero without a result):
      poses;
   6. the instance-batched replay (``parallel.replicas.batched_replay``) of
      ``GCConfig.tpu()`` over B = 8 instances of 100 drifting-odometry scans
-     (seeds 3-10), after a one-chunk warm-up: aggregate scan-instances/s,
-     ms per batched scan, peak memory and the measured peak factor of the
-     memory envelope, each instance's ATE against its odometry (each must
-     beat it), each kernel's launch count (one per batched call, not B),
-     host syncs, the vmap fallback warnings; instance 0 against the
+     (seeds 3-10), its batched phases replayed as CUDA graphs after a
+     one-chunk warm-up that captures them: aggregate scan-instances/s, ms
+     per batched scan, peak memory below the memory envelope (which counts
+     the graphs' second copy of the B states) and the measured peak
+     factor, each instance's ATE against its odometry (each must beat
+     it), each kernel's launch count (one per batched call, not B), host
+     syncs, the vmap fallbacks (those each capture met, credited at each
+     replay); instance 0 against the
      single-instance ``GCConfig.tpu(insert_page_dense=True)`` replay of the
      same data; then two 20-scan batched reruns with identical poses;
   7. the selection path: ``GCConfig.tpu(select_kernel=True)`` (K9 in the
@@ -1969,15 +1972,16 @@ def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
     import re
 
     import torch
-    from fl_slam_tpu_torch import certs, graphs
+    from fl_slam_tpu_torch import certs, graphs, tracing
     from fl_slam_tpu_torch.io.synthetic import to_scan_inputs
     from fl_slam_tpu_torch.ops.belief_kernels import use_belief_kernels
     from fl_slam_tpu_torch.parallel import replicas
     from fl_slam_tpu_torch.pipeline import init_state, replay
 
-    # The graphs of the single-instance replays before keep their static
-    # buffers (a state, ~0.47 GB, a lineage); the batched replay runs
-    # eagerly under vmap and uses none, so they go before its peak is read.
+    # The graphs of the replays before keep their static buffers (a state,
+    # ~0.47 GB an instance, a lineage) and their pools; the batched replay
+    # keeps its own (a second copy of the B states, which the memory
+    # envelope counts), so the others go before its peak is read.
     graphs.clear()
     B, R = len(dss), cfg.view_refresh_every
     t0 = time.perf_counter()
@@ -1997,11 +2001,15 @@ def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
     run(fresh(), _first_scans(scans, R))               # warm-up chunk
     torch.cuda.synchronize()
     states = fresh()
-    state_bytes = certs.memory_envelope(cfg, B)["state_bytes"]
+    env = certs.memory_envelope(cfg, B)
+    state_bytes = env["state_bytes"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with warnings.catch_warnings(record=True) as caught:
+    # A graph replay runs no Python: the instance vmap's fallbacks are the
+    # counts its capture met, credited at each replay (tracing.recording).
+    with tracing.recording() as counted, \
+            warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         t0 = time.perf_counter()
@@ -2017,6 +2025,9 @@ def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
     fallbacks = collections.Counter(
         (re.findall(r"batching rule for (\S+?)\.? ", str(w.message))
          or ["?"])[0] for w in caught if _VMAP_FALLBACK in str(w.message))
+    for (name, op), n in counted.items():
+        if name in ("replicas.fallback", "vmap.fallback"):
+            fallbacks[op] += n
     del states
     cfg1 = cfg.replace(insert_page_dense=True)
     _, one = replay(init_state(cfg1, anchor0=anchors[0], t0=t0s[0]),
@@ -2043,8 +2054,9 @@ def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
         raise AssertionError(f"{label}: instance 0 differs from the single "
                              f"replay by {diff0}")
     return dict(out=out, counts=counts, syncs=syncs, t_run=t_run, peak=peak,
-                state_bytes=state_bytes, fallbacks=fallbacks, diff0=diff0,
-                run=run, fresh=fresh, scans=scans)
+                state_bytes=state_bytes, envelope=env["peak_bytes_est"],
+                fallbacks=fallbacks, diff0=diff0, run=run, fresh=fresh,
+                scans=scans)
 
 
 def batched_path() -> dict:
@@ -2089,7 +2101,7 @@ def batched_path() -> dict:
         scans=N_SCANS, chunks=N_SCANS // R,
         scan_instances_per_s=B * N_SCANS / t_run,
         ms_per_batched_scan=t_run / N_SCANS * 1e3, peak_mem_bytes=r["peak"],
-        state_bytes=r["state_bytes"],
+        envelope_bytes=r["envelope"], state_bytes=r["state_bytes"],
         peak_factor=r["peak"] / (B * r["state_bytes"]),
         instances_ate=inst, launches=r["counts"],
         host_syncs_in_replay=r["syncs"],
@@ -2106,6 +2118,9 @@ def batched_path() -> dict:
                                  f"{r_}")
     if not same:
         raise AssertionError("batched reruns differ")
+    if not r["peak"] < r["envelope"]:
+        raise AssertionError(f"batched replay: peak {r['peak']} above the "
+                             f"memory envelope {r['envelope']}")
     return r["counts"]
 
 

@@ -22,8 +22,10 @@ Parts:
     RGB-D camera, every frame decoded and its features extracted live in
     the staging thread (no feature sidecar);
   - with ``--instances B``: the batched replay of B instances of the replay
-    part's scans (``parallel.replicas.batched_replay``), aggregate
-    scan-instances/s beside the single-instance point.
+    part's scans (``parallel.replicas.batched_replay``), and the same B
+    replayed one after another through ``pipeline.replay``, each from fresh
+    states, best of 3: aggregate scan-instances/s and the peak device memory
+    of each, beside the single-instance point.
 
 It runs on the CUDA device and raises without one; ``--cpu`` runs
 ``GCConfig.small()`` at the sizes of ``CPU_SIZES`` on the CPU (a check
@@ -176,9 +178,29 @@ def _e2e_part(cfg, dev, n_scans: int, seg_len: int, n_az: int,
     }
 
 
+def _timed(fn, dev, reps: int) -> tuple:
+    """(best wall seconds of ``fn()`` over ``reps``, the peak device bytes
+    over them, None off CUDA); ``fn`` returns poses to read to the host."""
+    import torch
+    card = dev.type == "cuda"
+    _sync(dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    best = float("inf")
+    for _ in range(reps):
+        _sync(dev)
+        t = time.perf_counter()
+        fn().cpu()
+        best = min(best, time.perf_counter() - t)
+    return best, torch.cuda.max_memory_allocated(dev) if card else None
+
+
 def _batched_part(cfg, ds, dev, B: int, reps: int, single: dict) -> dict:
+    import torch
+
     from fl_slam_tpu_torch.io.synthetic import to_scan_inputs
     from fl_slam_tpu_torch.parallel import replicas
+    from fl_slam_tpu_torch.pipeline import init_state, replay
     scans1 = to_scan_inputs(ds, cfg, device=dev)
     T = int(scans1.scan_start.shape[0])
     R = cfg.view_refresh_every
@@ -189,22 +211,24 @@ def _batched_part(cfg, ds, dev, B: int, reps: int, single: dict) -> dict:
     t0 = float(ds.gt_stamps[0]) - 0.1
     run = replicas.batched_replay(cfg, mesh)
 
-    def fresh():
-        return replicas.init_states_batched(cfg, B, t0=t0, mesh=mesh)
+    def batched():
+        states = replicas.init_states_batched(cfg, B, t0=t0, mesh=mesh)
+        return run(states, scans)[1][0].pose
 
-    run(fresh(), tuple(type(s)(*[f[:, :R] for f in s]) for s in scans))
-    best = float("inf")
-    for _ in range(reps):
-        states = fresh()
-        _sync(dev)
-        t = time.perf_counter()
-        _, (out,) = run(states, scans)
-        out.pose.cpu()
-        best = min(best, time.perf_counter() - t)
-        del states
+    def in_turn():      # the B instances one after another, one a call
+        return torch.stack([replay(init_state(cfg, t0=t0, device=dev),
+                                   scans1, cfg, device=dev)[1].pose
+                            for _ in range(B)])
+
+    run(replicas.init_states_batched(cfg, B, t0=t0, mesh=mesh),
+        tuple(type(s)(*[f[:, :R] for f in s]) for s in scans))
+    best, peak = _timed(batched, dev, reps)
+    best_1, peak_1 = _timed(in_turn, dev, reps)
     return {"instances": B, "scans": T, "best_of": reps, "wall_s": best,
             "scan_instances_per_sec": B * T / best,
-            "ms_per_batched_scan": 1e3 * best / T,
+            "ms_per_batched_scan": 1e3 * best / T, "peak_mem_bytes": peak,
+            "in_turn_scan_instances_per_sec": B * T / best_1,
+            "in_turn_peak_mem_bytes": peak_1,
             "single_instance_scans_per_sec": single["scans_per_sec"],
             "single_instance_ms_per_scan": single["ms_per_scan"]}
 

@@ -15,10 +15,12 @@ Envelope (``:189-271``: ``pytree_bytes``, ``device_hbm_bytes``,
 ``state_bytes`` is exact and allocates nothing: ``init_state`` runs on the
 ``meta`` device. The peak model is
 
-    peak = n_instances * PEAK_FACTOR * state_bytes + staged_bytes
+    peak = n_instances * (PEAK_FACTOR + 1) * state_bytes + staged_bytes
 
 with the port's own factor, measured on the card (not the reference's 2.5,
-which was calibrated on a TPU).
+which was calibrated on a TPU), and one more copy of the states: the static
+buffers of the phases' CUDA graphs (``graphs``), which hold the states a
+replay returns beside the states it was given (``lineage_bytes``).
 """
 
 from __future__ import annotations
@@ -30,11 +32,14 @@ import torch.utils._pytree as pytree
 
 from fl_slam_tpu_torch.config import D_Z, GCConfig
 
-# Peak device bytes of the B = 8 batched replay of GCConfig.tpu() (100
-# scans) over B x state_bytes, rounded up: chip_smoke.py phase 6 measured
-# 1.58 (5.95 GB over 8 x 470 MB) on an NVIDIA H100 80GB HBM3 at 700 W. The
-# live states are 1x; the rest is the stacked scan inputs, the per-scan
-# working set and the outputs.
+# Peak device bytes of the B = 8 batched replay of GCConfig.tpu() over
+# B x state_bytes, besides the graphs' copy of the states (the ``+ 1`` of the
+# model above), rounded up: the eager replay of 100 scans read 1.58 (5.95 GB
+# over 8 x 470 MB; chip_smoke.py phase 6), and on its CUDA graphs 1.08 in
+# phase 6 and 1.45 in the benchmark's tpu.sweep8 (9.57 GB with 0.3 GB of
+# staged scans), on an NVIDIA H100 80GB HBM3 at 700 W. The live states are
+# 1x; the rest is the stacked scan inputs, the per-scan working set (the
+# graphs' pool) and the outputs.
 PEAK_FACTOR = 1.6
 
 # Key prefix -> cert family (the reference's CertBundle sub-certs).
@@ -231,10 +236,12 @@ def memory_envelope(cfg: GCConfig, n_instances: int = 1,
     """Per-device envelope for ``n_instances`` on one card."""
     from fl_slam_tpu_torch.pipeline import init_state
     state = pytree_bytes(init_state(cfg, device="meta"))
-    peak = int(n_instances * PEAK_FACTOR * state) + int(staged_bytes)
+    lineage = n_instances * state
+    peak = int(n_instances * PEAK_FACTOR * state) + lineage \
+        + int(staged_bytes)
     return {"state_bytes": int(state), "n_instances": int(n_instances),
             "staged_bytes": int(staged_bytes), "peak_factor": PEAK_FACTOR,
-            "peak_bytes_est": peak}
+            "lineage_bytes": int(lineage), "peak_bytes_est": peak}
 
 
 def assert_memory_envelope(cfg: GCConfig, n_instances: int = 1,
@@ -250,7 +257,7 @@ def assert_memory_envelope(cfg: GCConfig, n_instances: int = 1,
     if limit is not None and env["peak_bytes_est"] > limit:
         per = env["state_bytes"] / 1e9
         fit = max(1, int((limit - staged_bytes)
-                         / (PEAK_FACTOR * env["state_bytes"])))
+                         / ((PEAK_FACTOR + 1) * env["state_bytes"])))
         raise ValueError(
             f"memory envelope exceeded: {n_instances} instances x "
             f"{per:.2f} GB state (peak est {env['peak_bytes_est'] / 1e9:.1f}"

@@ -1,13 +1,16 @@
 """CUDA graphs of the pipeline's three chunk phases.
 
 ``pipeline.replay`` and ``pipeline.process_scan`` run a chunk as
-``_chunk_begin``, R x ``_scan_core`` and ``_chunk_end``. Eagerly, each phase
-is a few hundred to a few thousand launches from Python, and the card waits
-on them. ``phases`` picks how the phases run from what it sees in its input:
+``_chunk_begin``, R x ``_scan_core`` and ``_chunk_end``, and the
+instance-batched replay (``parallel.replicas``) runs the same loop over
+their ``vmap``-ed forms on a stacked state. Eagerly, each phase is a few
+hundred to a few thousand launches from Python, and the card waits on
+them. ``phases`` picks how the phases run from what it sees in its input:
 on a CUDA device, outside any ``torch.func`` transform, each phase runs as
-the replay of a captured ``torch.cuda.CUDAGraph``; on the CPU, and under the
-batched replay's ``vmap``, the phases run eagerly, as they always did. A
-capture that fails raises; nothing falls back to the eager phases quietly.
+the replay of a captured ``torch.cuda.CUDAGraph`` (for all B instances at
+once where the phases are the batched forms); on the CPU, and inside a
+transform, the phases run eagerly. A capture that fails raises; nothing
+falls back to the eager phases quietly.
 
 A lineage is keyed by the configuration, the device and the structure,
 dtype and shape of every leaf of the state and of one scan. Its graphs
@@ -34,7 +37,9 @@ and ``graph.capture`` by phase, ``graph.eager`` by the reason a phase call
 stayed eager (``cpu``, ``functorch``). A replay also advances the kernel
 modules' ``launches`` counters by the counts its capture recorded (the
 capture's own increments are taken back, as it launched nothing), so they
-keep counting device launches.
+keep counting device launches, and the ``tracing`` counters by what the
+capture counted (the ``vmap`` fallbacks of its Python), so they keep
+counting what each call's Python would have met.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from fl_slam_tpu_torch import tracing
 from fl_slam_tpu_torch.ops import assoc_kernels, belief_kernels, surfel_kernels
 from fl_slam_tpu_torch.structures import atlas_kernels
 
-MAX_LINEAGES = 2       # each keeps a state's buffers (~0.47 GB at the presets)
+MAX_LINEAGES = 2       # each keeps a state's buffers (~0.47 GB an instance)
 _LAUNCHES = (assoc_kernels.launches, belief_kernels.launches,
              surfel_kernels.launches, atlas_kernels.launches)
 
@@ -148,6 +153,7 @@ class _Graph(NamedTuple):
     graph: object          # torch.cuda.CUDAGraph
     outs: tuple            # the captured output buffers (the scan output)
     launched: tuple        # (launches dict, key, count) the capture counted
+    counted: tuple = ()    # ((counter, key), n): tracing counts of the capture
 
 
 def _launch_counts() -> list:
@@ -227,11 +233,14 @@ class _Lineage:
                 g.graph.replay()
                 for counts, k, n in g.launched:
                     counts[k] += n
+                for (name, k), n in g.counted:
+                    tracing.count(name, k, n)
                 tracing.count("graph.replay", phase)
                 return [b.clone() for b in g.outs]
             outs = body()
             before = _launch_counts()
-            g = _capture(self, body)
+            with tracing.recording() as counted:
+                g = _capture(self, body)
             launched = []
             for counts, was in zip(_LAUNCHES, before):
                 for k in counts:
@@ -240,7 +249,8 @@ class _Lineage:
                         launched.append((counts, k, n))
                 counts.clear()
                 counts.update(was)
-            self.graphs[key] = g._replace(launched=tuple(launched))
+            self.graphs[key] = g._replace(launched=tuple(launched),
+                                          counted=tuple(counted.items()))
             tracing.count("graph.capture", phase)
             return outs
 
@@ -314,7 +324,7 @@ _lineages: OrderedDict = OrderedDict()
 
 def eager_reason(dev: torch.device):
     """Why the phases on ``dev`` stay eager (``functorch``: inside a
-    ``torch.func`` transform such as the batched replay's ``vmap``;
+    ``torch.func`` transform, where the inputs are not real tensors;
     ``cpu``: not a CUDA device), or None where they run as graphs."""
     if torch._C._functorch.maybe_current_level() is not None:
         return "functorch"

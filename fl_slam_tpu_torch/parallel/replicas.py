@@ -1,29 +1,44 @@
 """Instance-batched replay: N independent SLAM instances (bags, noise seeds)
 on one card or several (port of ``fl_slam_tpu/parallel/replicas.py``).
 
-The instances share nothing, so the batched program is the single-instance
-one under ``torch.func.vmap``: every per-instance tensor carries a leading
-instance axis, the ops batch over it, and each hand-written kernel's
-instance-batching rule launches one kernel for all instances (K7: K1/K2,
-the exchange; K3, K4 and K6 batched). The reference's device mesh becomes
-a tuple of devices: the instance axis is split into contiguous shards, one
-vmapped program per device, with no communication. On one card the split
-is the identity.
+The instances share nothing, so each of the pipeline's three chunk phases
+has a batched form, the phase under ``torch.func.vmap`` over the instance
+axis of the state, the view context and the scan (``PHASES``): every
+per-instance tensor carries a leading instance axis, the ops batch over
+it, and each hand-written kernel's instance-batching rule launches one
+kernel for all instances (K7: K1/K2, the exchange; K3, K4 and K6
+batched). The batched replay and step run the pipeline's own chunk loop
+(``pipeline._chunks`` / ``pipeline._step``) over these forms, outside any
+``vmap``: on a CUDA device each batched phase is then the replay of one
+CUDA graph for all the device's instances (``graphs``), on the CPU an
+eager call. The reference's device mesh becomes a tuple of devices: the
+instance axis is split into contiguous shards, one batched program per
+device, with no communication. On one card the split is the identity.
 
-State ownership is as in ``pipeline.replay``: a batched replay consumes the
-states it is given (the pools and slabs are updated in place).
+State ownership is as in ``pipeline.replay``: a batched call consumes the
+states it is given (the pools and slabs are updated in place), and on a
+CUDA device the states it returns live in the graphs' static buffers,
+which the next call of the same shapes on that device overwrites (where a
+mesh names one device twice, each shard's result is copied out).
+
+Tracing (``tracing``): the root span ``replicas.replay`` a device's
+batched replay, ``replicas.pack`` / ``replicas.flush`` below it; counter
+``replicas.fallback`` (the instance ``vmap``'s per-instance fallbacks, by
+operator). A batched phase call counts as one ``graph.replay`` or
+``graph.eager`` call for all its instances (``graphs``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.utils._pytree as pytree
 
-from fl_slam_tpu_torch import cuda_build
+from fl_slam_tpu_torch import cuda_build, graphs, pipeline, tracing
 from fl_slam_tpu_torch.certs import assert_memory_envelope
 from fl_slam_tpu_torch.config import GCConfig
-from fl_slam_tpu_torch.pipeline import (flush_slabs, init_state,
-                                        process_scan, replay)
+from fl_slam_tpu_torch.pipeline import flush_slabs, init_state
 from fl_slam_tpu_torch.runtime import resolve_device
 
 
@@ -73,19 +88,82 @@ def init_states_batched(cfg: GCConfig, n_instances: int, anchors0=None,
     t0s = [t0] * n_instances if isinstance(t0, (int, float)) else list(t0)
     shards = []
     for (i0, i1), dev in zip(bounds, mesh):
-        shards.append(stack_instances([init_state(
-            cfg, anchor0=None if anchors0 is None else anchors0[i],
-            t0=float(t0s[i]), device=dev) for i in range(i0, i1)]))
+        # Each instance is written into the stacked state as it is made, so
+        # that the shard never holds its states twice.
+        stacked = spec = None
+        for j, i in enumerate(range(i0, i1)):
+            leaves, spec = pytree.tree_flatten(init_state(
+                cfg, anchor0=None if anchors0 is None else anchors0[i],
+                t0=float(t0s[i]), device=dev))
+            if stacked is None:
+                stacked = [x.new_empty((i1 - i0,) + x.shape) for x in leaves]
+            for dst, x in zip(stacked, leaves):
+                dst[j] = x
+        shards.append(pytree.tree_unflatten(stacked, spec))
     return tuple(shards)
+
+
+def _batched(fn, *args):
+    """``fn(*args)`` under ``torch.func.vmap`` over the leading instance
+    axis of every tensor of ``args``. The leaves that are not tensors (a
+    view context's absent fields, in and out) are the same for every
+    instance and pass through as they are."""
+    kept = {}
+
+    def tensors_out(*a):
+        flat, kept["spec"] = pytree.tree_flatten(fn(*a))
+        kept["flat"] = [_TENSOR if isinstance(x, torch.Tensor) else x
+                        for x in flat]
+        return [x for x in flat if isinstance(x, torch.Tensor)]
+
+    in_dims = pytree.tree_map(
+        lambda x: 0 if isinstance(x, torch.Tensor) else None, args)
+    with tracing.vmap_fallbacks("replicas.fallback"):
+        outs = iter(torch.func.vmap(tensors_out, in_dims=in_dims)(*args))
+    return pytree.tree_unflatten([next(outs) if x is _TENSOR else x
+                                  for x in kept["flat"]], kept["spec"])
+
+
+_TENSOR = object()      # a tensor's place among an output's leaves
+
+
+def _begin(state, cfg, *, gamma_power: int = 1):
+    return _batched(functools.partial(pipeline._chunk_begin, cfg=cfg,
+                                      gamma_power=gamma_power), state)
+
+
+def _core(state, ctx, scan, cfg):
+    return _batched(functools.partial(pipeline._scan_core, cfg=cfg), state,
+                    ctx, scan)
+
+
+def _end(state, ctx, cfg):
+    return _batched(functools.partial(pipeline._chunk_end, cfg=cfg), state,
+                    ctx)
+
+
+# The batched phases, made once, so that a graph lineage keyed on them holds
+# from call to call; each looks the pipeline's phase up at its call.
+PHASES = graphs.Phases(_begin, _core, _end)
 
 
 def _per_device(fn, *shards):
     """``fn`` on each device's shard (the device last among the arguments),
-    with that device current, so that its kernels launch there."""
+    with that device current, so that its kernels launch there. Where the
+    mesh names a device with graphs twice, its shards share one graph
+    lineage, so each of their results is copied out of the lineage's
+    buffers."""
     out = []
+    devs = [args[-1] for args in zip(*shards)]
     for args in zip(*shards):
-        with cuda_build.device_guard(args[-1]):
-            out.append(fn(*args))
+        dev = args[-1]
+        with cuda_build.device_guard(dev):
+            r = fn(*args)
+            if devs.count(dev) > 1 and graphs.eager_reason(dev) is None:
+                r = pytree.tree_map(
+                    lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, r)
+        out.append(r)
     return tuple(out)
 
 
@@ -96,7 +174,7 @@ def _pairs(results):
 
 
 def batched_step(cfg: GCConfig, mesh):
-    """One scan for every instance, vmapped per device. Returns fn(states,
+    """One scan for every instance, batched per device. Returns fn(states,
     scans) -> (states', outputs) over tuples of per-device shards (scans
     without a time axis).
 
@@ -104,20 +182,21 @@ def batched_step(cfg: GCConfig, mesh):
     for the active tiles (the truth is in the resident slabs): reconcile
     with ``flush_states_batched`` before reading them."""
 
+    def one(state, scan, dev):
+        pipeline._on(dev, state.slabs.ff, scan.points)
+        return pipeline._step(state, scan, cfg, dev, PHASES)
+
     def step(states, scans):
-        return _pairs(_per_device(
-            lambda s, sc, dev: torch.func.vmap(
-                lambda a, b: process_scan(a, b, cfg, device=dev))(s, sc),
-            states, scans, mesh))
+        return _pairs(_per_device(one, states, scans, mesh))
 
     return step
 
 
 def batched_replay(cfg: GCConfig, mesh):
-    """The chunked replay of every instance, vmapped per device. Returns
+    """The chunked replay of every instance, batched per device. Returns
     fn(states, scans) -> (states', outputs) over tuples of per-device
-    shards; scans carry (n, T, ...) per shard. The returned pools are
-    reconciled (``replay`` ends with ``flush_slabs``).
+    shards; scans carry (n, T, ...) per shard, outputs (n, T, ...). The
+    returned pools are reconciled (the replay ends with the flush).
 
     The insert writes its target pages back whole (``insert_page_dense``,
     kernel K6), as the reference's batched replay does: under the instance
@@ -125,11 +204,18 @@ def batched_replay(cfg: GCConfig, mesh):
     for all instances."""
     cfg = cfg.replace(insert_page_dense=True)
 
+    def one(state, scans, dev):
+        with tracing.span("replicas.replay"):
+            pipeline._on(dev, state.slabs.ff, scans.points)
+            state, outs = pipeline._chunks(state, scans, cfg, dev, PHASES,
+                                           instances=True)
+            with tracing.span("replicas.pack"):
+                out = pipeline._stack_outputs(outs, cfg, dev, instances=True)
+            with tracing.span("replicas.flush"):
+                return flush_slabs(state, dev, instances=True), out
+
     def run(states, scans):
-        return _pairs(_per_device(
-            lambda s, sc, dev: torch.func.vmap(
-                lambda a, b: replay(a, b, cfg, device=dev))(s, sc),
-            states, scans, mesh))
+        return _pairs(_per_device(one, states, scans, mesh))
 
     return run
 
@@ -138,5 +224,4 @@ def flush_states_batched(states, mesh) -> tuple:
     """Reconcile every instance's pool with its resident slabs (required
     before reading the pools after ``batched_step`` loops)."""
     return _per_device(
-        lambda s, dev: torch.func.vmap(
-            lambda a: flush_slabs(a, device=dev))(s), states, mesh)
+        lambda s, dev: flush_slabs(s, dev, instances=True), states, mesh)

@@ -22,8 +22,11 @@ that the slab-exchange kernel (K5) reads, and the first-scan flag of the
 relative odometry factor is a device value.
 
 On a CUDA device the three phases run as replays of CUDA graphs
-(``graphs``), captured at the first call of their key; on the CPU and under
-``torch.func.vmap`` they run eagerly.
+(``graphs``), captured at the first call of their key; on the CPU and
+inside a ``torch.func`` transform they run eagerly. The chunk loop
+(``_chunks``, ``_step``) also runs the phases' instance-batched forms over
+a stacked state (``parallel.replicas``): its scans, outputs and flush then
+carry a leading instance axis.
 
 State ownership: ``replay`` / ``process_scan`` consume the state they are
 given. The tile pool and the resident slabs are updated in place (the
@@ -223,10 +226,19 @@ def init_state(cfg: GCConfig, anchor0=None, prior_info: float = 1e-6,
         odom_prev6=torch.zeros((6,), dtype=dt, device=dev))
 
 
-def flush_slabs(state: PipelineState, device=None) -> PipelineState:
-    """Write the resident slabs back to the pool (end of replay / export)."""
+def flush_slabs(state: PipelineState, device=None,
+                instances: bool = False) -> PipelineState:
+    """Write the resident slabs back to the pool (end of replay / export);
+    with ``instances``, of every instance of a stacked state (leading
+    instance axis)."""
     dev = resolve_device(device)
     _on(dev, state.slabs.ff)
+    if instances:
+        return torch.func.vmap(_flush)(state)
+    return _flush(state)
+
+
+def _flush(state: PipelineState) -> PipelineState:
     return state._replace(atlas=atlas_ops.scatter_slabs_ff(
         state.atlas, state.slab_slots, state.slabs))
 
@@ -305,7 +317,16 @@ def process_scan(state: PipelineState, scan: ScanInput, cfg: GCConfig,
     """One full scan at per-scan refresh cadence."""
     dev = resolve_device(device)
     _on(dev, state.slabs.ff, scan.points)
-    ph = _phases(state, scan, cfg, dev)
+    return _step(state, scan, cfg, dev, _phase_fns())
+
+
+def _step(state, scan, cfg: GCConfig, dev, fns: graphs.Phases):
+    """One chunk of one scan through the phases ``fns`` (the pipeline's,
+    or their batched forms over stacked instances); returns (state', the
+    scan's output). The chunk loop's for one scan, without its time axis:
+    a step's host time before its first launch is on the robot's
+    latency."""
+    ph = graphs.phases(fns, state, scan, cfg, dev)
     with tracing.span("pipeline.chunk_begin"):
         state, ctx = ph.begin(state, 1)
     with tracing.span("pipeline.scan_core"):
@@ -853,14 +874,17 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
                                       certs=certs)
 
 
-def _phases(state, scan, cfg, dev):
-    """The runner of the three phases for this call (``graphs.phases``);
-    the phase functions are looked up at each call."""
-    return graphs.phases(graphs.Phases(_chunk_begin, _scan_core, _chunk_end),
-                         state, scan, cfg, dev)
+def _phase_fns() -> graphs.Phases:
+    """The three phases, the functions looked up at each call (a hook that
+    replaces one is seen; the key compares them by identity)."""
+    return graphs.Phases(_chunk_begin, _scan_core, _chunk_end)
 
 
-def _scan_at(scans: ScanInput, i: int) -> ScanInput:
+def _scan_at(scans: ScanInput, i: int, instances: bool = False) -> ScanInput:
+    """Scan ``i`` of stacked scans: (T, ...) fields, or (B, T, ...) with
+    ``instances``."""
+    if instances:
+        return ScanInput(*[f[:, i] for f in scans])
     return ScanInput(*[f[i] for f in scans])
 
 
@@ -881,44 +905,63 @@ def replay(state: PipelineState, scans: ScanInput, cfg: GCConfig,
     with tracing.span("pipeline.replay"):
         dev = resolve_device(device)
         _on(dev, state.slabs.ff, scans.points)
-        T = scans.scan_start.shape[0]
-        R = max(1, int(cfg.view_refresh_every))
-        while T % R != 0:
-            R -= 1
-        ph = _phases(state, _scan_at(scans, 0), cfg, dev)
-        outs = []
-        for c0 in range(0, T, R):
-            with tracing.span("pipeline.chunk_begin"):
-                state, ctx = ph.begin(state, R)
-            for i in range(c0, c0 + R):
-                with tracing.span("pipeline.scan_core"):
-                    state, ctx, out = ph.core(state, ctx, _scan_at(scans, i))
-                outs.append(out)
-            with tracing.span("pipeline.chunk_end"):
-                state = ph.end(state, ctx)
+        state, outs = _chunks(state, scans, cfg, dev, _phase_fns())
         with tracing.span("pipeline.pack"):
             out = _stack_outputs(outs, cfg, dev)
         with tracing.span("pipeline.flush"):
             return flush_slabs(state, dev), out
 
 
-def _stack_outputs(outs: list, cfg: GCConfig, dev) -> ScanOutput:
-    """Per-scan outputs -> one ScanOutput with (T, ...) fields. Kernel cert
-    vectors (``__packed__:*``) are spliced as they are and named from
-    their registered groups."""
+def _chunks(state, scans: ScanInput, cfg: GCConfig, dev,
+            fns: graphs.Phases, instances: bool = False):
+    """The chunk loop of ``replay`` through the phases ``fns``: the
+    pipeline's over (T, ...) scans, or their instance-batched forms over
+    (B, T, ...) scans of stacked instances (``instances``). Returns (the
+    state, before its flush; each scan's output)."""
+    T = scans.scan_start.shape[-1]
+    R = max(1, int(cfg.view_refresh_every))
+    while T % R != 0:
+        R -= 1
+    ph = graphs.phases(fns, state, _scan_at(scans, 0, instances), cfg, dev)
+    outs = []
+    for c0 in range(0, T, R):
+        with tracing.span("pipeline.chunk_begin"):
+            state, ctx = ph.begin(state, R)
+        for i in range(c0, c0 + R):
+            with tracing.span("pipeline.scan_core"):
+                state, ctx, out = ph.core(state, ctx,
+                                          _scan_at(scans, i, instances))
+            outs.append(out)
+        with tracing.span("pipeline.chunk_end"):
+            state = ph.end(state, ctx)
+    return state, outs
+
+
+def _stack_outputs(outs: list, cfg: GCConfig, dev,
+                   instances: bool = False) -> ScanOutput:
+    """Per-scan outputs -> one ScanOutput with (T, ...) fields, or with
+    (B, T, ...) fields where each output carries a leading instance axis
+    (``instances``). Kernel cert vectors (``__packed__:*``) are spliced as
+    they are and named from their registered groups."""
     certs0 = outs[0].certs
     scalar_keys = sorted(k for k in certs0 if not k.startswith("__packed__:"))
     packed_keys = sorted(k for k in certs0 if k.startswith("__packed__:"))
     names = scalar_keys + [n for k in packed_keys
                            for n in belief_kernels.PACKED_CERT_GROUPS[k]]
-    certs_tc = torch.stack([torch.cat([torch.stack([
-        torch.as_tensor(o.certs[k], dtype=cfg.torch_dtype,
-                        device=dev).reshape(()) for k in scalar_keys])]
-        + [o.certs[k].to(cfg.torch_dtype) for k in packed_keys])
-        for o in outs])
-    return ScanOutput(pose=torch.stack([o.pose for o in outs]),
-                      stamp=torch.stack([o.stamp for o in outs]),
-                      certs={k: certs_tc[:, j] for j, k in enumerate(names)})
+    lead = (outs[0].pose.shape[0],) if instances else ()
+    t = 1 if instances else 0
+
+    def scalar(v):
+        v = torch.as_tensor(v, dtype=cfg.torch_dtype, device=dev)
+        return v.reshape(lead) if v.dim() else v.expand(lead)
+
+    certs_tc = torch.stack([torch.cat(
+        [torch.stack([scalar(o.certs[k]) for k in scalar_keys], -1)]
+        + [o.certs[k].to(cfg.torch_dtype) for k in packed_keys], -1)
+        for o in outs], t)
+    return ScanOutput(pose=torch.stack([o.pose for o in outs], t),
+                      stamp=torch.stack([o.stamp for o in outs], t),
+                      certs={k: certs_tc[..., j] for j, k in enumerate(names)})
 
 
 def replay_jit(cfg: GCConfig, device=None):

@@ -28,13 +28,22 @@ Span names (the layer boundaries):
 - ``io.read``, ``io.pack`` (the staging thread) and ``io.upload`` (the
   caller's thread) of ``io.rosbag.StreamingStager``.
 
-Counter ``vmap.fallback``, keyed by operator: ``torch.func.vmap``'s
-per-instance fallbacks (an operator with no batching rule) inside the
-hypothesis bank's ``vmap`` calls (``vmap_fallbacks``). Counters
-``graph.replay`` and ``graph.capture``, keyed by phase (``chunk_begin``,
-``scan_core``, ``chunk_end``), and ``graph.eager``, keyed by the reason a
-phase call stayed eager (``cpu``, ``functorch``): the pipeline's phase
-calls (``graphs``).
+The root ``replicas.replay`` of one instance-batched replay of a device's
+instances (``parallel.replicas.batched_replay``), with the phase spans
+above below it and ``replicas.pack`` / ``replicas.flush`` in place of
+``pipeline.pack`` / ``pipeline.flush``.
+
+Counters ``vmap.fallback`` and ``replicas.fallback``, keyed by operator:
+``torch.func.vmap``'s per-instance fallbacks (an operator with no
+batching rule) inside the hypothesis bank's ``vmap`` calls and inside the
+instance ``vmap`` of the batched phases (``vmap_fallbacks``); a fallback
+under both is counted by the innermost. Counters ``graph.replay`` and
+``graph.capture``, keyed by phase (``chunk_begin``, ``scan_core``,
+``chunk_end``), and ``graph.eager``, keyed by the reason a phase call
+stayed eager (``cpu``, ``functorch``): the pipeline's phase calls
+(``graphs``), the batched phases' among them, one count a call for all
+its instances. A graph replay runs no Python, so ``graphs`` credits each
+replay with the fallbacks its capture counted (``recording``).
 """
 
 from __future__ import annotations
@@ -170,12 +179,31 @@ def laps(name: str):
 
 
 def count(name: str, key: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` under ``key`` while tracing is on."""
+    """Add ``n`` to counter ``name`` under ``key`` while tracing is on, and
+    to every ``recording`` open on this thread whatever the profiler."""
+    for rec in getattr(_local, "records", ()):
+        rec[(name, key)] = rec.get((name, key), 0) + n
     if not _profiler._is_profiler_enabled:
         return
     with _lock:
         c = _counters.setdefault(name, {})
         c[key] = c.get(key, 0) + n
+
+
+@contextmanager
+def recording():
+    """Yield a dict {(counter, key): n} of what ``count`` adds on this
+    thread inside the block, with or without a profiler; the fallback
+    counters (``vmap_fallbacks``) count inside it too."""
+    rec: dict = {}
+    records = getattr(_local, "records", None)
+    if records is None:
+        records = _local.records = []
+    records.append(rec)
+    try:
+        yield rec
+    finally:
+        records.remove(rec)
 
 
 _FALLBACK = re.compile(r"have not yet implemented the (?:nested )?batching "
@@ -195,7 +223,7 @@ def _fallback_warning_enabled() -> bool:
 
 
 @contextmanager
-def _counting_fallbacks():
+def _counting_fallbacks(name: str):
     prev = _fallback_warning_enabled()
     torch._C._functorch._set_vmap_fallback_warning_enabled(True)
     try:
@@ -207,20 +235,21 @@ def _counting_fallbacks():
     for w in caught:
         m = _FALLBACK.search(str(w.message))
         if m:
-            count("vmap.fallback", m.group(1))
+            count(name, m.group(1))
         else:
             warnings.warn_explicit(w.message, w.category, w.filename,
                                    w.lineno, source=w.source)
 
 
-def vmap_fallbacks():
-    """Around a ``torch.func.vmap`` call: while tracing is on, count its
-    per-instance fallbacks under ``vmap.fallback`` by operator (the
-    fallback warning is turned on and its flag restored after; other
-    warnings pass through)."""
-    if not _profiler._is_profiler_enabled:
+def vmap_fallbacks(name: str = "vmap.fallback"):
+    """Around a ``torch.func.vmap`` call: while tracing is on or a
+    ``recording`` is open, count its per-instance fallbacks under counter
+    ``name`` by operator (the fallback warning is turned on and its flag
+    restored after; other warnings pass through)."""
+    if not (_profiler._is_profiler_enabled or getattr(_local, "records",
+                                                      None)):
         return _NULL
-    return _counting_fallbacks()
+    return _counting_fallbacks(name)
 
 
 def spans() -> list:

@@ -183,27 +183,44 @@ def test_cpu_stays_eager_and_counts_it(drive):
     assert not graphs._lineages
 
 
+def _batched_inputs(cfg, device, B, n, seed=3):
+    """B drifting sequences of n scans (seeds seed ..), stacked on one
+    device's shard, and a maker of their fresh states."""
+    seqs = [_sequence(cfg, device, n, seed=seed + i) for i in range(B)]
+    mesh = replicas.make_mesh([device])
+    scans = replicas.shard_scan_inputs(
+        replicas.stack_instances([s for _, s in seqs]), mesh)
+
+    def fresh():
+        return replicas.init_states_batched(
+            cfg, B, anchors0=[ds.gt_poses[0] for ds, _ in seqs],
+            t0=[float(ds.gt_stamps[0]) - 0.1 for ds, _ in seqs], mesh=mesh)
+
+    return mesh, scans, fresh
+
+
 @pytest.mark.parametrize("drive", ["batched_replay", "batched_step"])
 def test_vmap_stays_eager_and_counts_functorch(drive):
+    """The batched phases run outside any ``vmap``: on the CPU they stay
+    eager for the device (``cpu``), each call counted once for its 2
+    instances; the phases inside a ``vmap`` of the whole step stay eager as
+    ``functorch``."""
     cfg = GCConfig.small(**dict(TINY, insert_page_dense=True))
-    seqs = [_sequence(cfg, "cpu", 5, seed=s) for s in (3, 4)]
-    mesh = replicas.make_mesh(["cpu"])
-    states = replicas.init_states_batched(
-        cfg, 2, anchors0=[ds.gt_poses[0] for ds, _ in seqs],
-        t0=[float(ds.gt_stamps[0]) - 0.1 for ds, _ in seqs], mesh=mesh)
-    scans = replicas.stack_instances([s for _, s in seqs])
+    mesh, scans, fresh = _batched_inputs(cfg, "cpu", 2, 5)
     with profile(activities=CPU):
         if drive == "batched_replay":
-            replicas.batched_replay(cfg, mesh)(
-                states, replicas.shard_scan_inputs(scans, mesh))
+            replicas.batched_replay(cfg, mesh)(fresh(), scans)
             calls = 5 + 2
         else:
             replicas.batched_step(cfg, mesh)(
-                states, replicas.shard_scan_inputs(
-                    tp.ScanInput(*[f[:, 0] for f in scans]), mesh))
+                fresh(), (tp.ScanInput(*[f[:, 0] for f in scans[0]]),))
             calls = 3
-    c = tracing.counters()
-    assert c.get("graph.eager") == {"functorch": calls}
+        c = tracing.counters()
+        tracing.reset()
+        torch.func.vmap(lambda a, b: tp.process_scan(a, b, cfg, "cpu"))(
+            fresh()[0], tp.ScanInput(*[f[:, 0] for f in scans[0]]))
+    assert c.get("graph.eager") == {"cpu": calls}
+    assert tracing.counters().get("graph.eager") == {"functorch": 3}
     assert not graphs._lineages
 
 
@@ -286,6 +303,105 @@ def test_each_phase_is_captured_once_a_key(rerun):
     assert "graph.capture" not in second and "graph.eager" not in second
     assert second["graph.replay"] == {"chunk_begin": 2, "scan_core": 10,
                                       "chunk_end": 2}
+
+
+@pytest.mark.parametrize("drive", ["batched_replay", "batched_step"])
+def test_batched_lineage_matches_eager_bit_for_bit(rerun, drive,
+                                                   monkeypatch):
+    """The batched phases of 3 instances through one lineage: each phase
+    call a graph replay after its capture, counted once for all its
+    instances, the outputs and states the eager batched run's."""
+    cfg = GCConfig.small(**dict(TINY, insert_page_dense=True))
+    mesh, scans, fresh = _batched_inputs(cfg, "cpu", 3, 10)
+
+    def run():
+        if drive == "batched_replay":
+            (st,), (out,) = replicas.batched_replay(cfg, mesh)(fresh(),
+                                                               scans)
+            return st, out
+        st, outs = fresh(), []
+        step = replicas.batched_step(cfg, mesh)
+        for i in range(3):
+            st, (out,) = step(st, (tp._scan_at(scans[0], i, True),))
+            outs.append(out)
+        return replicas.flush_states_batched(st, mesh)[0], outs
+
+    st_g, out_g = run()                     # the warm-ups and captures
+    with profile(activities=CPU):
+        st_g, out_g = run()
+    c = tracing.counters()
+    calls = 10 + 2 * 2 if drive == "batched_replay" else 3 * 3
+    assert sum(c["graph.replay"].values()) == calls
+    assert "graph.eager" not in c and "graph.capture" not in c
+    assert len(graphs._lineages) == 1
+    _eager(monkeypatch)
+    st_e, out_e = run()
+    _assert_outputs_equal(out_e, out_g)
+    _assert_trees_equal(st_e, st_g)
+
+
+def _fallback_phases():
+    """Stand-in batched phases whose ``vmap`` meets a fallback (an
+    in-place scatter of a batched tensor) in ``core``."""
+    def begin(state, cfg, gamma_power=1):
+        return state, {"v": state.x}
+
+    def core(state, ctx, scan, cfg):
+        def one(x):
+            return x.clone().scatter_(0, torch.zeros(1, dtype=torch.long),
+                                      x)
+        with tracing.vmap_fallbacks("replicas.fallback"):
+            x = torch.func.vmap(one)(state.x)
+        return state._replace(x=x + scan.y.sum()), ctx, tp.ScanOutput(
+            pose=x[:, :2], stamp=scan.y[:, 0], certs={})
+
+    def end(state, ctx, cfg):
+        return state
+
+    return graphs.Phases(begin, core, end)
+
+
+def test_replays_credit_the_fallbacks_of_their_capture(rerun, monkeypatch):
+    """A graph replay runs no Python: each replay credits the fallbacks its
+    capture met, counted there whether or not a profiler ran, so a traced
+    replay counts what an eager call would."""
+    kept = _Rerun.replay
+
+    def quiet(self):                        # a replay runs no Python
+        with tracing.recording():
+            was = tracing.counters()
+            kept(self)
+            tracing.reset()
+            for name, keys in was.items():
+                for k, n in keys.items():
+                    tracing.count(name, k, n)
+
+    monkeypatch.setattr(_Rerun, "replay", quiet)
+    fns, dev = _fallback_phases(), torch.device("cpu")
+    cfg = GCConfig.small(**TINY)
+    st = _St(torch.zeros(2, 3, dtype=torch.float64))
+    sc = _Sc(torch.ones(2, 4, dtype=torch.float64))
+
+    def chunk(state):
+        lin = graphs.phases(fns, state, sc, cfg, dev)
+        state, ctx = lin.begin(state, 1)
+        for _ in range(3):
+            state, ctx, _ = lin.core(state, ctx, sc)
+        return lin.end(state, ctx)
+
+    st = chunk(st)                         # warm-up and capture, untraced
+    assert not tracing.counters()
+    with profile(activities=CPU):
+        chunk(st)
+    c = tracing.counters()
+    assert c["graph.replay"]["scan_core"] == 3
+    assert c["replicas.fallback"] == {"aten::scatter_.src": 3}
+    _eager(monkeypatch)
+    tracing.reset()
+    with profile(activities=CPU):
+        chunk(st)
+    assert tracing.counters()["replicas.fallback"] == {
+        "aten::scatter_.src": 3}
 
 
 # ---- the key, on stand-in phases -------------------------------------------
@@ -447,3 +563,56 @@ def test_capture_beside_the_staging_thread_on_the_card(cuda, tmp_path,
     eager = run()
     monkeypatch.undo()
     _assert_outputs_equal(eager, run())
+
+
+def test_batched_graphs_match_eager_on_the_card(cuda, monkeypatch):
+    """``GCConfig.tpu()`` at B = 8 over 2 chunks: the batched phases'
+    graphs, at their capture and at their replay, give the eager batched
+    replay's poses, certificates and final state bit for bit; every
+    batched phase call of the replay is one graph replay for 8 instances."""
+    cfg = GCConfig.tpu()
+    mesh, scans, fresh = _batched_inputs(cfg, cuda, 8, 20)
+    run = replicas.batched_replay(cfg, mesh)
+    _eager(monkeypatch)
+    (st_e,), (out_e,) = run(fresh(), scans)
+    monkeypatch.undo()
+    (st_c,), (out_c,) = run(fresh(), scans)
+    _assert_outputs_equal(out_e, out_c)
+    _assert_trees_equal(st_e, st_c)
+    with profile(activities=CPU):
+        (st_g,), (out_g,) = run(fresh(), scans)
+    c = tracing.counters()
+    assert c["graph.replay"] == {"chunk_begin": 2, "scan_core": 20,
+                                 "chunk_end": 2}
+    assert "graph.eager" not in c and "graph.capture" not in c
+    _assert_outputs_equal(out_e, out_g)
+    _assert_trees_equal(st_e, st_g)
+
+
+def test_batched_counters_reconcile_on_the_card(cuda):
+    """Over graph replays of the batched phases (B = 8), the profiler's
+    launches of each port kernel agree with the port's counters: one
+    batched launch a call for all instances."""
+    cfg = GCConfig.tpu()
+    mesh, scans, fresh = _batched_inputs(cfg, cuda, 8, 20)
+    run = replicas.batched_replay(cfg, mesh)
+    run(fresh(), scans)
+    torch.cuda.synchronize()
+    states = fresh()
+    before = {m: dict(c) for m, c in profile_replay._counters().items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(states, scans)
+        torch.cuda.synchronize()
+        profile_replay._trailer()
+    after = {m: dict(c) for m, c in profile_replay._counters().items()}
+    counts = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            counts[e.name()] = counts.get(e.name(), 0) + 1
+    diff = {m: {k: after[m][k] - before[m].get(k, 0) for k in after[m]}
+            for m in after}
+    rows = profile_replay.reconcile(counts.items(), diff)
+    assert rows and all(r["agree"] for r in rows), rows
+    by = {r["name"]: r["port"] for r in rows}
+    assert by["sinkhorn_cluster"] == 20 and by["pe_kernel"] == 20
+    assert by["exchange_pass"] == 2

@@ -119,6 +119,21 @@ def test_device_guard_is_a_no_op_for_the_cpu(fake_cuda):
     assert out == (6,)
 
 
+@pytest.mark.parametrize("mesh,copied", [
+    ((torch.device("cpu"),) * 2, False),
+    ((MESH[0],) * 2, True)])
+def test_shards_of_one_device_are_copied_only_out_of_graphs(fake_cuda, mesh,
+                                                            copied):
+    """Two shards on one CUDA device share its graph lineage's buffers, so
+    their results are copied out; on the CPU there are no graphs to copy
+    from."""
+    kept = [torch.arange(3.0), torch.arange(4.0)]
+    out = replicas._per_device(lambda i, dev: (kept[i], i), (0, 1), mesh)
+    for i, (t, j) in enumerate(out):
+        assert j == i and torch.equal(t, kept[i])
+        assert (t is not kept[i]) == copied
+
+
 def test_every_wrapper_launches_through_the_guard():
     """No module of the port calls a kernel's C entry point with a stream
     of its own: each goes through ``cuda_build.launch``."""
