@@ -37,7 +37,18 @@ Phases (any failure raises and the script exits non-zero without a result):
      of the rows per warp, exact ties across the warps' chunks and row
      groups), reruns bit for bit, and their ms, device us per call, library
      ms and bound beside the previous designs' (K9's bound also at the non-
-     FMA instruction rate);
+     FMA instruction rate); K11 in f32 and f64 on the operands captured from
+     the camera-off and camera-on scans and on ``ops.pose6_cases``' edges
+     (zero, diagonal, repeated, non-finite, rank-deficient and negative
+     eigenvalues, condition number 1e8), within 128 ulps of the block's norm
+     of its plain twin, bit for bit where no rotation turns, reruns bit for
+     bit; its batched launch (``vmap``, one launch) in f32 and f64 on the
+     operands captured from the bank of ``GCConfig()`` (K = 4) and from the
+     batched replay of ``GCConfig.tpu()`` (B = 8) and on the captured
+     operand stacked with the edges, every instance held to the twin and
+     bit for bit the one-matrix launch's, reruns bit for bit; and its time
+     at B = 1 and 8 (eager, device, graph replay) beside the plain chain's
+     and the launch floor;
   4. replay ``GCConfig.tpu()`` (the belief kernels K1/K2 on) and then
      ``GCConfig.tpu(belief_kernel=False)`` over 100 synthetic
      drifting-odometry scans each (seed 3, 10 chunks), each after a
@@ -1538,14 +1549,16 @@ def _edge_belief_operands(seed: int):
 _CAPTURED = (("ops.belief_kernels", "predict_evidence_packed"),
              ("ops.belief_kernels", "scalar_tail_packed"),
              ("ops.assoc_kernels", "sinkhorn_piT"),
-             ("ops.surfel_kernels", "moment_segment_sum"))
+             ("ops.surfel_kernels", "moment_segment_sum"),
+             ("ops.fusion", "pose6_conditioning"))
 
 
-def _capture(run) -> dict:
-    """The operands K1, K2, K3 and K4 (fuse site) receive at their last
-    call in ``run()`` (copied on the way in): {attribute: (args,
-    kwargs)}. ``run()``'s pipeline phases run eagerly: a CUDA graph replay
-    calls no Python wrapper."""
+def _capture(run, targets=_CAPTURED) -> dict:
+    """The operands the wrappers ``targets`` name (by default K1, K2, K3,
+    K4 at its fuse site and K11) receive at their last call in ``run()``
+    (copied on the way in): {attribute: (args, kwargs)}. ``run()``'s
+    pipeline phases run eagerly: a CUDA graph replay calls no Python
+    wrapper."""
     import importlib
 
     import torch
@@ -1563,7 +1576,7 @@ def _capture(run) -> dict:
         return run
 
     mods = [(importlib.import_module(f"fl_slam_tpu_torch.{m}"), name)
-            for m, name in _CAPTURED]
+            for m, name in targets]
     originals = [getattr(m, name) for m, name in mods]
     for (m, name), fn in zip(mods, originals):
         setattr(m, name, hooked(fn, name))
@@ -1594,6 +1607,48 @@ def _captured_operands(cfg, camera: bool, n_scans: int = 20) -> dict:
         to_scan_inputs(ds, cfg), cfg))
     seen["camera_rows"] = int(ds.scans["cam_valid"][-1].sum())
     return seen
+
+
+def _captured_pose6_batches(n_scans: int = 20) -> list:
+    """The (B, D, D) operands of K11's last batched launch in two short
+    eager replays of drifting-odometry scans: the bank of ``GCConfig()``
+    (its ``vmap`` over the K hypotheses) and the batched replay of
+    ``GCConfig.tpu()`` over N_INST instances (seeds SEED + 1 ..), as phase 6
+    runs it; [(inputs, operand on the CPU)]."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.parallel import replicas
+    from fl_slam_tpu_torch.pipeline import init_state, replay
+
+    drift = dict(odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+    target = (("ops.belief_kernels", "_pose6_launch"),)
+    cfg = GCConfig()
+    ds = simulate(cfg, n_scans=n_scans, seed=SEED + 1, **drift)
+    bank = _capture(lambda: replay(
+        init_state(cfg, anchor0=ds.gt_poses[0],
+                   t0=float(ds.gt_stamps[0]) - 0.1),
+        to_scan_inputs(ds, cfg), cfg), target)["_pose6_launch"][0][0]
+    cfg = GCConfig.tpu()
+    dss = [simulate(cfg, n_scans=n_scans, seed=SEED + 1 + i, **drift)
+           for i in range(N_INST)]
+    mesh = replicas.make_mesh()
+    scans = replicas.shard_scan_inputs(replicas.stack_instances(
+        [to_scan_inputs(d, cfg) for d in dss]), mesh)
+    states = replicas.init_states_batched(
+        cfg, N_INST, anchors0=[d.gt_poses[0] for d in dss],
+        t0=[float(d.gt_stamps[0]) - 0.1 for d in dss], mesh=mesh)
+    batched = _capture(lambda: replicas.batched_replay(cfg, mesh)(
+        states, scans), target)["_pose6_launch"][0][0]
+    del states, scans
+    torch.cuda.empty_cache()
+    out = [(f"bank of GCConfig() (K = {bank.shape[0]})", bank.cpu()),
+           (f"batched replay (B = {batched.shape[0]})", batched.cpu())]
+    for inputs, L in out:
+        if L.dim() != 3 or L.shape[0] < 2:
+            raise AssertionError(f"K11 capture, {inputs}: operand "
+                                 f"{tuple(L.shape)}, expected (B, D, D)")
+    return out
 
 
 def _belief_work(name: str, itemsize: int):
@@ -1688,6 +1743,166 @@ def check_belief_kernels(cam_ops: dict) -> list:
             plain_ms=_time_ms(lambda: plain(cfg, *timed), reps=5),
             bound_ms=bound, bound_by=by, library_ms=None,
             shape="22x22 belief, f32 (captured operands)", checks=checks))
+    return rows + _pose6_rows(off["pose6_conditioning"][0][0],
+                              cam_ops["pose6_conditioning"][0][0])
+
+
+def _graph_ms(fn) -> float:
+    """CUDA-event ms of one replay of ``fn`` captured as a CUDA graph (the
+    pipeline's phases run so)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _time_ms(graph.replay)
+
+
+def _pose6_batched_checks(batches, eps: float) -> list:
+    """K11's batched launch (``vmap``) on each (B, D, D) operand of
+    ``batches`` in f32 and f64: one launch a call, every instance held to
+    the plain twin (``pose6_cases.held``) and equal bit for bit to the
+    one-matrix launch, a rerun bit for bit."""
+    import torch
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    from fl_slam_tpu_torch.ops import pose6_cases as pc
+
+    dev = torch.device("cuda")
+    call = torch.func.vmap(lambda L: bk.pose6_cond(L, eps))
+    checks = []
+    for inputs, Lb in batches:
+        for dt in (torch.float32, torch.float64):
+            L = Lb.to(dev, dt)
+            before = dict(bk.launches)
+            got = call(L)
+            launched = {k: bk.launches[k] - before[k] for k in before
+                        if bk.launches[k] != before[k]}
+            again = call(L)
+            rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+            single, worst = True, None
+            for b in range(L.shape[0]):
+                one = bk.pose6_cond(L[b], eps)
+                single &= all(torch.equal(a[b], o) for a, o in zip(got, one))
+                res = pc.held(L[b], (got[0][b], got[1][b]),
+                              bk.pose6_conditioning_plain(L[b], eps), eps)
+                share = (res["max_abs_err"] / res["tolerance"]
+                         if res["tolerance"] > 0 else 0.0)
+                if worst is None or not res["ok"] or share > worst[0]:
+                    worst = (share, b, res)
+                if not res["ok"]:
+                    break
+            dname = str(dt).replace("torch.", "")
+            share, b, res = worst
+            checks.append(dict(inputs=inputs, dtype=dname, B=L.shape[0],
+                               launches=launched, rerun_identical=rerun,
+                               single_identical=single, worst_instance=b,
+                               **res))
+            if not (res["ok"] and rerun and single
+                    and launched == {"pose6_cond_batched": 1}):
+                raise AssertionError(
+                    f"K11 batched ({inputs}, {dname}): instance {b} {res}, "
+                    f"launches {launched}, rerun identical {rerun}, every "
+                    f"instance the one-matrix launch's {single}")
+    return checks
+
+
+def _pose6_rows(captured, camera) -> list:
+    """Phase 3, K11: the kernel against its plain twin (both on the card)
+    in f32 and f64, on the operands the ``GCConfig.tpu()`` replay hands it
+    (camera off and on) and on ``ops.pose6_cases``' edges (bit for bit
+    where no rotation turns), reruns bit for bit; its batched launch
+    (``vmap``) on the operands the bank of ``GCConfig()`` and phase 6's
+    batched replay hand it and on the captured operand among the edges
+    (``_pose6_batched_checks``); then its time at B = 1 and at B = N_INST
+    (the batched replay's operands, one launch) beside the plain chain's,
+    eager and replayed as a CUDA graph (the path before K11), and the
+    launch floor."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    from fl_slam_tpu_torch.ops import pose6_cases as pc
+
+    eps = GCConfig.tpu().eps_psd
+    dev = torch.device("cuda")
+    batches = _captured_pose6_batches()
+    edges = torch.stack([captured.cpu().double()] + [
+        pc.edge(c, SEED) for c in pc.EDGE_CASES])
+    batched_checks = _pose6_batched_checks(
+        batches + [(f"captured and the edges (B = {edges.shape[0]})",
+                    edges)], eps)
+    checks = []
+    for inputs, L0 in ([("captured", captured),
+                        ("captured camera-on", camera)]
+                       + [(c, pc.edge(c, SEED)) for c in pc.EDGE_CASES]):
+        for dt in (torch.float32, torch.float64):
+            L = L0.to(dev, dt)
+            got, again = bk.pose6_cond(L, eps), bk.pose6_cond(L, eps)
+            want = bk.pose6_conditioning_plain(L, eps)
+            torch.cuda.synchronize()
+            res = pc.held(L, got, want, eps)
+            rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            dname = str(dt).replace("torch.", "")
+            checks.append(dict(inputs=inputs, dtype=dname,
+                               rerun_identical=rerun, exact=exact, **res))
+            if not (res["ok"] and rerun
+                    and (exact or inputs not in pc.EXACT_CASES)):
+                raise AssertionError(f"K11 ({inputs}, {dname}): {res}, "
+                                     f"rerun identical {rerun}, exact "
+                                     f"{exact}")
+    one = torch.zeros(1, device=dev)
+    floor = _device_ms(lambda: one.add_(1))
+    L1 = captured.to(dev, torch.float32)
+    L8 = batches[1][1].to(dev, torch.float32)
+    vmap = torch.func.vmap
+    main = [c for c in checks if c["inputs"] == "captured"
+            and c["dtype"] == "float32"][0]
+    main_b = [c for c in batched_checks if c["inputs"] == batches[1][0]
+              and c["dtype"] == "float32"][0]
+    rows = []
+    for key, B, kern, plain in (
+            ("pose6_cond", 1, lambda: bk.pose6_cond(L1, eps),
+             lambda: bk.pose6_conditioning_plain(L1, eps)),
+            ("pose6_cond[batched]", L8.shape[0],
+             lambda: vmap(lambda L: bk.pose6_cond(L, eps))(L8),
+             lambda: vmap(lambda L: bk.pose6_conditioning_plain(L, eps))(
+                 L8))):
+        # Each matrix's 6x6 read once and 7 values written; ~258
+        # operations a round (36 elements of four products and two sums,
+        # as ``rotated`` computes them, and three rotation solves of 14)
+        # over 40 rounds, none fused.
+        bound, by = _bound_ms(B * 43 * 4, B * 258 * 40,
+                              H100_F32_NONFMA_OPS_PER_S)
+        rows.append(dict(
+            name=key, launch_key=key, route="cuda",
+            source="fl_slam_tpu_torch/csrc/pose6_cond.cu",
+            replaces="none (jnp.linalg.eigvalsh in the reference's XLA "
+                     "program, fl_slam_tpu/ops/fusion.py:116)",
+            site="scan tail (fusion_ops.pose6_conditioning)",
+            max_abs_err=(main if B == 1 else main_b)["max_abs_err"],
+            tolerance=(main if B == 1 else main_b)["tolerance"],
+            tolerance_is=f"{pc.LAM_ULPS} ulps of the block's norm, per "
+                         "eigenvalue; the ratio within the interval that "
+                         "leaves",
+            ms=_time_ms(kern), device_ms=_device_ms(
+                kern, expect={"pose6_cond_kernel<float>": 1}),
+            graph_ms=_graph_ms(kern), plain_ms=_time_ms(plain, reps=5),
+            plain_device_ms=_device_ms(plain, reps=5),
+            plain_graph_ms=_graph_ms(plain), launch_floor_device_ms=floor,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=f"B = {B}, 6x6 of 22x22 evidence, f32 (captured "
+                  "operands)", checks=checks if B == 1 else batched_checks))
+        print(f"K11 {key}: {rows[-1]['ms'] * 1e3:.2f} us a call, device "
+              f"{rows[-1]['device_ms'] * 1e3:.2f} us, graph replay "
+              f"{rows[-1]['graph_ms'] * 1e3:.2f} us; the plain chain "
+              f"{rows[-1]['plain_ms']:.3f} ms eager, device "
+              f"{rows[-1]['plain_device_ms']:.3f} ms, graph replay "
+              f"{rows[-1]['plain_graph_ms']:.3f} ms; launch floor "
+              f"{floor * 1e3:.2f} us", flush=True)
     return rows
 
 
@@ -1802,13 +2017,23 @@ _COUNT_KEYS = {
     "select_candidates[batched]": (0, "select_candidates_batched"),
     "splat_bin": (4, "splat_bin"),
     "splat_composite": (4, "splat_composite"),
+    "pose6_cond": (2, "pose6_cond"),
+    "pose6_cond[batched]": (2, "pose6_cond_batched"),
 }
 
 _SINGLE_PATH = ("predict_evidence", "scalar_tail", "sinkhorn_piT",
                 "moment_segment_sum[surfels]", "moment_segment_sum[fuse]",
-                "conditional_slab_exchange_ff")
+                "conditional_slab_exchange_ff", "pose6_cond")
 _SELECT_PATH = ("select_candidates", "select_candidates[batched]")
 _RENDER_PATH = ("splat_bin", "splat_composite")
+
+
+def _k11(cfg, n: int) -> dict:
+    """K11's launches in ``n`` one-instance scans: one a scan, batched
+    where the bank's ``vmap`` runs the scan's tail (no K1 / K2)."""
+    from fl_slam_tpu_torch.ops.belief_kernels import use_belief_kernels
+    return {"pose6_cond" if use_belief_kernels(cfg)
+            else "pose6_cond[batched]": n}
 
 
 def _reset_counts():
@@ -1911,10 +2136,12 @@ def main_path() -> dict:
                 "moment_segment_sum[fuse]": N_SCANS,
                 "conditional_slab_exchange_ff": N_SCANS // R}
     main = run_replay(cfg, "GCConfig.tpu()", dict(
-        per_scan, predict_evidence=N_SCANS, scalar_tail=N_SCANS), ds, scans)
-    run_replay(GCConfig.tpu(belief_kernel=False),
-               "GCConfig.tpu(belief_kernel=False)",
-               dict(per_scan, predict_evidence=0, scalar_tail=0), ds, scans)
+        per_scan, predict_evidence=N_SCANS, scalar_tail=N_SCANS,
+        **_k11(cfg, N_SCANS)), ds, scans)
+    cfg_off = GCConfig.tpu(belief_kernel=False)
+    run_replay(cfg_off, "GCConfig.tpu(belief_kernel=False)",
+               dict(per_scan, predict_evidence=0, scalar_tail=0,
+                    **_k11(cfg_off, N_SCANS)), ds, scans)
 
     # Phase 5: two 20-scan replays from fresh states give identical poses.
     def fresh():
@@ -2044,6 +2271,7 @@ def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
     if cfg.view_page:       # the dense-page insert (K6)
         want["page_gather_ff"] = want["page_writeback_ff"] = T
     want["conditional_slab_exchange_ff[batched]"] = T // R
+    want["pose6_cond[batched]"] = T       # one launch a batched scan
     for name, n in counts.items():
         if n != want[name]:
             raise AssertionError(f"{label}: {name} launched {n} times, "
@@ -2136,7 +2364,7 @@ def select_path(main: dict, ds, scans) -> dict:
             "sinkhorn_piT": N_SCANS, "moment_segment_sum[surfels]": N_SCANS,
             "moment_segment_sum[fuse]": N_SCANS,
             "conditional_slab_exchange_ff": N_SCANS // R,
-            "select_candidates": N_SCANS}
+            "select_candidates": N_SCANS, **_k11(cfg, N_SCANS)}
     res = run_replay(cfg, "GCConfig.tpu(select_kernel=True)", want, ds,
                      scans)
     print("select: " + json.dumps(dict(
@@ -2433,7 +2661,8 @@ def _bag_result(label: str, res: dict, counts: dict, seg_syncs: list,
 def _bag_launches(cfg, n: int) -> dict:
     return {"predict_evidence": n, "scalar_tail": n, "sinkhorn_piT": n,
             "moment_segment_sum[surfels]": n, "moment_segment_sum[fuse]": n,
-            "conditional_slab_exchange_ff": n // cfg.view_refresh_every}
+            "conditional_slab_exchange_ff": n // cfg.view_refresh_every,
+            **_k11(cfg, n)}
 
 
 def bag_path(tmp: str) -> dict:
@@ -2658,7 +2887,8 @@ def camera_path() -> dict:
                 "scalar_tail": T if cfg.belief_kernel else 0,
                 "sinkhorn_piT": T, "moment_segment_sum[surfels]": T,
                 "moment_segment_sum[fuse]": T,
-                "conditional_slab_exchange_ff": T // cfg.view_refresh_every}
+                "conditional_slab_exchange_ff": T // cfg.view_refresh_every,
+                **_k11(cfg, T)}
 
     def staged(cfg, n, seed, camera, **kw):
         t0 = time.perf_counter()
@@ -2858,7 +3088,8 @@ def reference_config_path(main: dict) -> list:
     a = run_replay(cfg, "GCConfig()", {
         "sinkhorn_piT": N_SCANS, "moment_segment_sum[surfels]": N_SCANS,
         "moment_segment_sum[fuse]": N_SCANS,
-        "conditional_slab_exchange_ff": N_SCANS}, ds, scans)
+        "conditional_slab_exchange_ff": N_SCANS, **_k11(cfg, N_SCANS)},
+        ds, scans)
     head = _slice(scans, N_RERUN)
     p1 = run(cfg, ds, head)[1].pose
     box = {}
@@ -2980,7 +3211,7 @@ def _single_launches(cfg, n_scans: int, n_exchanges: int) -> dict:
             "conditional_slab_exchange_ff": n_exchanges}
     if use_belief_kernels(cfg):
         want["predict_evidence"] = want["scalar_tail"] = n_scans
-    return want
+    return dict(want, **_k11(cfg, n_scans))
 
 
 def _held_counts(label: str, counts: dict, want: dict) -> dict:

@@ -215,14 +215,10 @@ def spd_inverse_lifted(A, eps: float = 1e-9):
     return 0.5 * (inv + inv.transpose(-1, -2)), mag
 
 
-def eigvalsh_jacobi(A, sweeps: int = 8):
-    """Eigenvalues (ascending) of one symmetric (n, n) matrix, n even, by
-    cyclic Jacobi over a round-robin pair schedule with a fixed sweep
-    count: plain tensor ops with no host sync (``torch.linalg.eigvalsh``
-    checks its LAPACK/cuSOLVER status on the host)."""
-    n = A.shape[-1]
+def jacobi_rounds(n: int) -> list:
+    """The round-robin schedule of ``eigvalsh_jacobi`` (n even): n - 1
+    rounds of n / 2 disjoint pairs (p, q), p < q, every pair once."""
     assert n % 2 == 0, n
-    tiny = torch.finfo(A.dtype).tiny
     players = list(range(n))
     rounds = []
     for _ in range(n - 1):
@@ -230,8 +226,18 @@ def eigvalsh_jacobi(A, sweeps: int = 8):
                         max(players[i], players[n - 1 - i]))
                        for i in range(n // 2)])
         players = [players[0], players[-1]] + players[1:-1]
+    return rounds
+
+
+def eigvalsh_jacobi(A, sweeps: int = 8):
+    """Eigenvalues (ascending) of one symmetric (n, n) matrix, n even, by
+    cyclic Jacobi over a round-robin pair schedule with a fixed sweep
+    count: plain tensor ops with no host sync (``torch.linalg.eigvalsh``
+    checks its LAPACK/cuSOLVER status on the host)."""
+    n = A.shape[-1]
+    tiny = torch.finfo(A.dtype).tiny
     sched = []
-    for pairs in rounds:
+    for pairs in jacobi_rounds(n):
         p = [a for a, _ in pairs]
         q = [b for _, b in pairs]
         sched.append((

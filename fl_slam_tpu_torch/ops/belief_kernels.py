@@ -1,6 +1,7 @@
 """K1 and K2, the two belief kernels of the K=1 scan update (port of the TPU
 kernels ``fl_slam_tpu/ops/belief_kernels.py:1344`` ``predict_evidence`` and
-``:676`` ``scalar_tail``).
+``:676`` ``scalar_tail``), and K11, the pose block's conditioning that
+feeds K2's trust alpha (``pose6_cond``; it replaces no TPU kernel).
 
 K1 runs the mechanized OU predict, every IMU / odometry factor, their 22-D
 embeds and the linearization-point solve. K2 runs tempering, excitation,
@@ -17,6 +18,11 @@ instance-batching rules (``register_vmap``) are the port of the reference's
 ``_batched_pallas`` (K7): under ``torch.func.vmap`` one launch serves every
 instance, one block each. ``launches`` counts kernel launches per kernel,
 one-instance and batched apart.
+
+``pose6_cond`` goes through its own custom op: the fixed-sweep Jacobi of
+``pose6_conditioning_plain`` as one launch of ``csrc/pose6_cond.cu`` for a
+CUDA tensor (one matrix, or every matrix of a ``vmap``, nested ones too),
+the plain version for a CPU tensor.
 
 The plain versions copy the reference's math, not its Mosaic workarounds:
 no masked-reduction row/block extraction and a true ``atan2`` instead of the
@@ -38,7 +44,7 @@ from fl_slam_tpu_torch.config import (D_Z, GRAVITY_W, IDX_BA, IDX_DT, IDX_EX,
                                       IDX_POSE, IDX_ROT, IDX_TRANS, IDX_VEL,
                                       GCConfig)
 from fl_slam_tpu_torch.core import se3
-from fl_slam_tpu_torch.core.linalg import project_psd3
+from fl_slam_tpu_torch.core.linalg import eigvalsh_jacobi, project_psd3
 from fl_slam_tpu_torch.core.vmf import kappa_from_resultant
 from fl_slam_tpu_torch.runtime import instance_first
 
@@ -113,7 +119,8 @@ _IW_DIMS = (3, 3, 3, 3, 3, 1, 6)
 _IW_STARTS = (0, 3, 6, 9, 12, 15, 16)
 
 launches = {"predict_evidence": 0, "scalar_tail": 0,
-            "predict_evidence_batched": 0, "scalar_tail_batched": 0}
+            "predict_evidence_batched": 0, "scalar_tail_batched": 0,
+            "pose6_cond": 0, "pose6_cond_batched": 0}
 
 
 def use_belief_kernels(cfg: GCConfig) -> bool:
@@ -925,3 +932,74 @@ def scalar_tail(cfg: GCConfig, L_pred, h_pred, anchor, mu_pred, L_io, h_io,
                               h_io, z_lin, L_vis, h_vis_rel, dz_odom, pnu,
                               ppsi, mnu, mpsi, dpsi_gyro, dpsi_accel,
                               dpsi_lidar, scal)
+
+
+# ---------------------------------------------------------------------------
+# K11: the pose block's condition number (csrc/pose6_cond.cu).
+# ---------------------------------------------------------------------------
+
+def pose6_conditioning_plain(L_evidence, eps_cond: float):
+    """Eigenvalues (ascending, clamped at ``eps_cond``) and spectral
+    condition number of the pose block of one (D, D) evidence matrix, by
+    fixed-sweep Jacobi (no host sync)."""
+    Lp = 0.5 * (L_evidence[IDX_POSE, IDX_POSE]
+                + L_evidence[IDX_POSE, IDX_POSE].T)
+    Lp = torch.nan_to_num(Lp, nan=0.0, posinf=0.0, neginf=0.0)
+    lam = eigvalsh_jacobi(Lp)
+    lam = torch.clamp(torch.nan_to_num(lam, nan=eps_cond), min=eps_cond)
+    return lam, lam[-1] / lam[0]
+
+
+def _pose6_launch(L, eps_cond: float):
+    """K11 on (..., D, D): one launch for every leading index, one warp a
+    matrix; the pose blocks are read in place through the strides."""
+    batch = L.shape[:-2]
+    launches["pose6_cond" if not batch else "pose6_cond_batched"] += 1
+    flat = L[None] if not batch else L[..., :6, :6].reshape(-1, 6, 6)
+    B = flat.shape[0]
+    lib = cuda_build.library("pose6_cond")
+    fn = (lib.pose6_cond_f32 if L.dtype == torch.float32
+          else lib.pose6_cond_f64)
+    lam = torch.empty((B, 6), dtype=L.dtype, device=L.device)
+    ratio = torch.empty((B,), dtype=L.dtype, device=L.device)
+    cuda_build.launch(lib, fn, "pose6_cond", L.device, flat.data_ptr(),
+                      *flat.stride(), lam.data_ptr(), ratio.data_ptr(), B,
+                      eps_cond)
+    return lam.reshape(*batch, 6), ratio.reshape(batch)
+
+
+@torch.library.custom_op("fl_slam::pose6_cond", mutates_args=())
+def _pose6_op(L: torch.Tensor,
+              eps_cond: float) -> tuple[torch.Tensor, torch.Tensor]:
+    # L is (..., D, D): leading axes come from the batching rule.
+    if L.device.type == "cpu":
+        fn = pose6_conditioning_plain
+        for _ in range(L.dim() - 2):
+            fn = torch.func.vmap(fn, in_dims=(0, None))
+        return fn(L, eps_cond)
+    return _pose6_launch(L, eps_cond)
+
+
+@torch.library.register_vmap("fl_slam::pose6_cond")
+def _pose6_vmap(info, in_dims, L, eps_cond):
+    # Back through the op: an outer vmap's rule then adds its own axis.
+    return _pose6_op(instance_first(info.batch_size, L, in_dims[0]),
+                     eps_cond), (0, 0)
+
+
+def pose6_cond(L_evidence, eps_cond: float):
+    """K11: (eigenvalues (6,) ascending and clamped at ``eps_cond``,
+    condition number lam[5] / lam[0]) of the pose block of (D, D)
+    ``L_evidence``, D >= 6: the kernel on a CUDA tensor, one launch for
+    all matrices under ``torch.func.vmap``; the plain version on a CPU
+    tensor."""
+    dev, dt = L_evidence.device, L_evidence.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"pose6_cond: dtype {dt}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"pose6_cond: unsupported device {dev}")
+    shape = tuple(L_evidence.shape)
+    if len(shape) != 2 or shape[0] != shape[1] or shape[0] < 6:
+        raise ValueError(f"pose6_cond: operand has shape {shape}, expected "
+                         "(D, D) with D >= 6")
+    return _pose6_op(L_evidence, float(eps_cond))

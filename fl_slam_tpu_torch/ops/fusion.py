@@ -7,7 +7,8 @@ import torch
 
 from fl_slam_tpu_torch.config import IDX_DT, IDX_EX, IDX_POSE, IDX_VEL
 from fl_slam_tpu_torch.core.belief import Belief
-from fl_slam_tpu_torch.core.linalg import eigvalsh_jacobi, psd_guard
+from fl_slam_tpu_torch.core.linalg import psd_guard
+from fl_slam_tpu_torch.ops import belief_kernels
 
 
 def power_tempering_beta(L_ev, ess_total, exc_total, *, power_beta_min: float,
@@ -85,10 +86,6 @@ def info_fusion_additive(belief_pred: Belief, L_evidence, h_evidence, alpha,
 
 def pose6_conditioning(L_evidence, eps_cond: float):
     """Pose-block spectral condition number (eigenvalues by fixed-sweep
-    Jacobi: no host sync)."""
-    Lp = 0.5 * (L_evidence[IDX_POSE, IDX_POSE]
-                + L_evidence[IDX_POSE, IDX_POSE].T)
-    Lp = torch.nan_to_num(Lp, nan=0.0, posinf=0.0, neginf=0.0)
-    lam = eigvalsh_jacobi(Lp)
-    lam = torch.clamp(torch.nan_to_num(lam, nan=eps_cond), min=eps_cond)
-    return lam[-1] / lam[0]
+    Jacobi: no host sync): K11 on the card, its plain version
+    (``belief_kernels.pose6_conditioning_plain``) on the CPU."""
+    return belief_kernels.pose6_cond(L_evidence, eps_cond)[1]

@@ -61,6 +61,8 @@ KERNEL_COUNTERS = {
                       ("assoc_kernels", "select_candidates_batched", 1)),
     "select_topk_kernel": (("assoc_kernels", "select_candidates", 1),
                            ("assoc_kernels", "select_candidates_batched", 1)),
+    "pose6_cond_kernel": (("belief_kernels", "pose6_cond", 1),
+                          ("belief_kernels", "pose6_cond_batched", 1)),
 }
 OWN_KERNELS = tuple(KERNEL_COUNTERS)
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 predict + evidence, K2 scalar tail, K3
 Sinkhorn, K4 moment segment-sum, K5 slab exchange, K6 page IO, K8 splat
-compositing, K9 candidate selection, K10 the row-major exchange) against
+compositing, K9 candidate selection, K10 the row-major exchange, K11 the
+pose block's conditioning) against
 their plain versions, in f32 and f64, on a CUDA device, and their
 instance-batched launches (K7, batched K9) against the one-instance ones;
 and the bag staging's upload to the card (pinned double buffers, one copy
@@ -21,6 +22,7 @@ from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.ops import assoc_kernels, belief_kernels, surfel_kernels
 from fl_slam_tpu_torch.ops import noise as noise_ops
+from fl_slam_tpu_torch.ops import pose6_cases
 from fl_slam_tpu_torch.render.splat_cases import (BIN_EDGE_CASES,
                                                   bin_edge_table)
 from fl_slam_tpu_torch.structures import atlas_kernels, exchange_cases
@@ -303,6 +305,97 @@ def test_belief_kernels_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError, match="operand 17"):
         belief_kernels.scalar_tail_packed(
             GCConfig.tpu(), *[t.to(cuda) for t in ops[:17]], ops[17])
+
+
+# ---------------------------------------------------------------------------
+# K11, the pose block's conditioning, against its plain twin on the card
+# (tolerances: fl_slam_tpu_torch/ops/pose6_cases.py).
+# ---------------------------------------------------------------------------
+
+EPS_COND = GCConfig.tpu().eps_psd
+
+
+def _pose6(L):
+    return belief_kernels.pose6_cond(L, EPS_COND)
+
+
+def _pose6_twin(L):
+    return belief_kernels.pose6_conditioning_plain(L, EPS_COND)
+
+
+def _assert_pose6_held(L, got, want):
+    res = pose6_cases.held(L, got, want, EPS_COND)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ("evidence",) + pose6_cases.EDGE_CASES)
+def test_pose6_kernel_matches_plain(cuda, dtype, case):
+    """One launch a call, reruns bit for bit, within the twin's rounding
+    (bit for bit where no rotation turns)."""
+    L = (pose6_cases.evidence(5) if case == "evidence"
+         else pose6_cases.edge(case, 5)).to(cuda, dtype)
+    before = belief_kernels.launches["pose6_cond"]
+    a, b = _pose6(L), _pose6(L)
+    assert belief_kernels.launches["pose6_cond"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = _pose6_twin(L)
+    _assert_pose6_held(L, a, want)
+    if case in pose6_cases.EXACT_CASES:
+        assert all(torch.equal(x, y) for x, y in zip(a, want))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-5),
+                                        (torch.float64, 1e-13)])
+def test_pose6_kernel_matches_lapack_on_well_conditioned_blocks(cuda, dtype,
+                                                                rtol):
+    """Against the CPU's f64 ``eigvalsh``: 8 sweeps converge a 6x6 of
+    condition 13 to rounding, so the gap is the dtype's rounding of the
+    operand and of the rotations (f32: ~170 ulps of the norm, f64: ~450)."""
+    g = torch.Generator().manual_seed(9)
+    for _ in range(4):
+        L = pose6_cases.edge("diagonal", int(torch.randint(99, (1,),
+                                                           generator=g)))
+        Q, _ = torch.linalg.qr(torch.randn((6, 6), generator=g,
+                                           dtype=torch.float64))
+        lam = torch.tensor([1.0, 2.0, 3.0, 5.0, 8.0, 13.0],
+                           dtype=torch.float64)
+        L[:6, :6] = Q @ torch.diag(lam) @ Q.T
+        Ld = L.to(cuda, dtype)
+        want = torch.linalg.eigvalsh(Ld[:6, :6].double().cpu())
+        got, ratio = _pose6(Ld)
+        err = (got.double().cpu() - want).abs().max() / want.abs().max()
+        assert err <= rtol, float(err)
+        assert abs(float(ratio) / float(want[5] / want[0]) - 1) <= 2 * rtol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(4,), (8,), (2, 4), (40,)])
+def test_batched_pose6_is_the_single_kernel_per_matrix(cuda, dtype, shape):
+    """Under ``vmap`` (nested for (2, 4); two blocks at 40) one launch
+    serves every matrix, and each equals its one-matrix launch bit for
+    bit; an instance axis that is not the first is read in place."""
+    n = math.prod(shape)
+    mats = [pose6_cases.evidence(s) if s % 3 else pose6_cases.edge(
+        pose6_cases.EDGE_CASES[s % len(pose6_cases.EDGE_CASES)], s)
+        for s in range(n)]
+    L = torch.stack(mats).reshape(*shape, 22, 22).to(cuda, dtype)
+    fn = _pose6
+    for _ in shape:
+        fn = torch.func.vmap(fn)
+    before = dict(belief_kernels.launches)
+    lam, ratio = fn(L)
+    assert belief_kernels.launches["pose6_cond_batched"] == \
+        before["pose6_cond_batched"] + 1
+    assert belief_kernels.launches["pose6_cond"] == before["pose6_cond"]
+    flat = L.reshape(n, 22, 22)
+    for b in range(n):
+        one = _pose6(flat[b])
+        assert torch.equal(lam.reshape(n, 6)[b], one[0])
+        assert torch.equal(ratio.reshape(n)[b], one[1])
+    if len(shape) == 1:
+        moved = torch.func.vmap(_pose6, in_dims=1)(L.movedim(0, 1))
+        assert torch.equal(moved[0], lam) and torch.equal(moved[1], ratio)
 
 
 # ---------------------------------------------------------------------------

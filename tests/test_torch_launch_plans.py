@@ -3,7 +3,9 @@ guard every launch runs under (a mesh of two CUDA devices, faked), the
 entry points' ctypes types set once at load, the reconciliation of
 ``profile_replay``'s profiler counts with the port's launch counters, the
 launch plans of K3 (the cluster Sinkhorn), K4 (the sorted segment-sum) and
-K9 (the candidate selection), K6's launch arguments, and the plain versions
+K9 (the candidate selection), K6's launch arguments, K11's op on the CPU
+(the plain chain, alone and under ``vmap``) and its source's tables, and
+the plain versions
 against the JAX package on the edge cases the redesigned kernels are held
 to on the card.
 """
@@ -22,7 +24,10 @@ import jax.numpy as jnp
 
 from fl_slam_tpu.ops import assoc_kernels as j_assoc
 from fl_slam_tpu_torch import cuda_build, profile_replay
-from fl_slam_tpu_torch.ops import assoc_kernels, surfel_kernels
+from fl_slam_tpu_torch.core.linalg import jacobi_rounds
+from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
+                                   surfel_kernels)
+from fl_slam_tpu_torch.ops import fusion as fusion_ops
 from fl_slam_tpu_torch.parallel import replicas
 from fl_slam_tpu_torch.structures import atlas_kernels
 
@@ -243,9 +248,7 @@ def test_launch_enters_the_guard_only_off_the_current_device(fake_cuda,
 
 def _zero_counters():
     return {"assoc_kernels": dict.fromkeys(assoc_kernels.launches, 0),
-            "belief_kernels": {"predict_evidence": 0, "scalar_tail": 0,
-                               "predict_evidence_batched": 0,
-                               "scalar_tail_batched": 0},
+            "belief_kernels": dict.fromkeys(belief_kernels.launches, 0),
             "surfel_kernels": dict.fromkeys(surfel_kernels.launches, 0),
             "atlas_kernels": {"exchange_ff": 0, "exchange_ff_batched": 0,
                               "exchange": 0, "exchange_batched": 0,
@@ -487,6 +490,96 @@ def test_page_launch_args_refuse_what_the_kernel_does_not_take():
         with pytest.raises(ValueError, match="k: "):
             atlas_kernels.page_launch_args("k", kw["ff"], kw["offs"],
                                            kw["page"], 128)
+
+
+# -- K11: the pose block's conditioning, one op for one matrix or B -------
+
+def _evidence(seed, batch=()):
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn((*batch, 22, 22), generator=g, dtype=torch.float64)
+    L = X @ X.transpose(-1, -2)
+    L[..., 0, 1] += 0.25                                 # not symmetric
+    return L
+
+
+@pytest.mark.parametrize("how", ["one", "vmap", "vmap_dim1", "nested",
+                                 "float32"])
+def test_pose6_op_on_the_cpu_is_the_plain_chain(how):
+    """On the CPU, ``fusion_ops.pose6_conditioning`` goes through K11's op
+    and equals the plain chain bit for bit, as that chain ran before the
+    op: alone, under the bank's or the instances' ``vmap`` (the instance
+    axis first or second), nested, and in f32."""
+    plain = belief_kernels.pose6_conditioning_plain
+
+    def chain(L):
+        return plain(L, 1e-9)[1]
+
+    def op(L):
+        return fusion_ops.pose6_conditioning(L, 1e-9)
+
+    vmap = torch.func.vmap
+    before = dict(belief_kernels.launches)
+    if how in ("one", "float32"):
+        L = _evidence(1)
+        L = L.float() if how == "float32" else L
+        got, want = op(L), chain(L)
+    elif how == "nested":
+        L = _evidence(2, (2, 3))
+        got, want = vmap(vmap(op))(L), vmap(vmap(chain))(L)
+    else:
+        dim = 1 if how == "vmap_dim1" else 0
+        L = _evidence(3, (4,)).movedim(0, dim)
+        got, want = vmap(op, dim)(L), vmap(chain, dim)(L)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert belief_kernels.launches == before           # nothing launched
+
+
+def test_pose6_op_returns_the_clamped_eigenvalues_and_their_ratio():
+    L = _evidence(4)
+    lam, ratio = belief_kernels.pose6_cond(L, 1e-9)
+    want = torch.linalg.eigvalsh(0.5 * (L[:6, :6] + L[:6, :6].T))
+    torch.testing.assert_close(lam, want, rtol=1e-12, atol=0.0)
+    assert torch.equal(ratio, lam[5] / lam[0])
+    lam0, ratio0 = belief_kernels.pose6_cond(torch.zeros(22, 22), 1e-6)
+    assert torch.equal(lam0, torch.full((6,), 1e-6)) and ratio0 == 1.0
+
+
+@pytest.mark.parametrize("L,match", [
+    (torch.zeros(5, 5), "shape"), (torch.zeros(22), "shape"),
+    (torch.zeros(6, 7), "shape"), (torch.zeros(2, 22, 22), "shape"),
+    (torch.zeros(22, 22, dtype=torch.int32), "dtype"),
+    (torch.zeros(22, 22, dtype=torch.float16), "dtype"),
+    (torch.zeros(22, 22, device="meta"), "device")])
+def test_pose6_op_refuses_what_the_kernel_does_not_take(L, match):
+    with pytest.raises(ValueError, match=match):
+        belief_kernels.pose6_cond(L, 1e-9)
+
+
+def _cu_table(name: str) -> list:
+    """The integers of a ``constexpr int <name>[...] = {...};`` table of
+    K11's source, in order."""
+    src = (cuda_build.CSRC / "pose6_cond.cu").read_text()
+    body = re.search(rf"{name}\[[^=]*=\s*\{{(.*?)\}};", src, re.S).group(1)
+    return [int(v) for v in re.findall(r"\d+", body)]
+
+
+def test_pose6_kernel_runs_the_plain_chains_schedule():
+    flat = [v for rnd in jacobi_rounds(6) for pair in rnd for v in pair]
+    assert _cu_table("kSchedule") == flat
+
+
+def test_pose6_kernel_sorting_network_sorts_every_input():
+    """K11's 6-element network, by the 0-1 principle: it sorts every input
+    of zeros and ones, so it sorts every input."""
+    net = _cu_table("kNetwork")
+    pairs = list(zip(net[0::2], net[1::2]))
+    assert len(pairs) == 12 and all(a < b for a, b in pairs)
+    for bits in range(64):
+        d = [bits >> k & 1 for k in range(6)]
+        for a, b in pairs:
+            if d[a] > d[b]:
+                d[a], d[b] = d[b], d[a]
+        assert d == sorted(d), bits
 
 
 # -- the plain versions against the JAX package at the kernels' edges ----
