@@ -28,16 +28,15 @@ Phases (any failure raises and the script exits non-zero without a result):
      captured from one scan of a ``GCConfig.tpu()`` replay and an edge
      set (condition number 1e7, the first scan of the relative odometry
      branch, dt = 1e-4 s), reruns bit for bit, and their device us per
-     call, one instance and B = 8, beside the one-block design's; K1/K2,
-     K3 and K4's fuse site also on the operands captured from one
-     camera-on scan (its camera rows live); K6
+     call, one instance and B = 8; K1/K2, K3 and K4's fuse site also on the
+     operands captured from one camera-on scan (its camera rows live); K6
      and K9 at their edges (K6 at B = 8: the last page of every slab, int32
      offsets, offsets shared by every instance, offsets off the 16-byte
      grid, f64; K9 in f32 and f64: one chunk, V = 16,640, N not a multiple
      of the rows per warp, exact ties across the warps' chunks and row
      groups), reruns bit for bit, and their ms, device us per call, library
-     ms and bound beside the previous designs' (K9's bound also at the non-
-     FMA instruction rate); K11 in f32 and f64 on the operands captured from
+     ms and bound (K9's bound also at the non-FMA instruction rate); K11
+     in f32 and f64 on the operands captured from
      the camera-off and camera-on scans and on ``ops.pose6_cases``' edges
      (zero, diagonal, repeated, non-finite, rank-deficient and negative
      eigenvalues, condition number 1e8), within 128 ulps of the block's norm
@@ -1906,52 +1905,10 @@ def _pose6_rows(captured, camera) -> list:
     return rows
 
 
-# Device us per call of the one-block K1 / K2 (512 threads, ~114 / ~70
-# block barriers), one instance and B = 8, from this script's phase 3 (NVIDIA
-# H100 80GB HBM3, 700.00 W).
-ONE_BLOCK_DEVICE_US = {"predict_evidence": (91.0, 80.0),
-                       "scalar_tail": (92.0, 81.0)}
-
-
-def _print_belief_times(rows) -> None:
+def _print_render_pairs(rows) -> None:
+    """K8's two stages: time, the share of pairs each stage's data needs,
+    and the bounds from those pairs and from the dense grid."""
     by = {r["name"]: r for r in rows}
-    for name, (one, eight) in ONE_BLOCK_DEVICE_US.items():
-        print(f"{name}: device us per call {by[name]['device_ms'] * 1e3:.1f} "
-              f"(one-block design {one}), B={N_INST} "
-              f"{by[name + '[batched]']['device_ms'] * 1e3:.1f} "
-              f"(one-block design {eight})", flush=True)
-
-
-# The designs of K6 (one block per page row), K9 (one warp per row, both
-# stages in one kernel), K8 (one block per tile, every pixel through every
-# splat, the binning in torch) and K5 / K7 / K10 (two launches, flush then
-# gather, one block per strip) before their redesign: ms per call (CUDA
-# events), device us per call (torch.profiler; K6's then included an int32
-# cast of the offsets), one instance and B = 8, from this script's phase 3
-# (NVIDIA H100 80GB HBM3, 700.00 W).
-PREVIOUS_DESIGN = {"page_gather_ff": (0.456, 3.6), "page_writeback_ff":
-                   (0.360, 3.5), "select_candidates": (0.099, 71.0),
-                   "select_candidates[batched]": (0.389, 356.0),
-                   "splat_composite": (0.079, 74.8),
-                   "conditional_slab_exchange_ff[refresh=0]": (0.117, 15.9),
-                   "conditional_slab_exchange_ff[refresh=1]": (0.105, 82.1),
-                   "conditional_slab_exchange_ff[batched]": (0.494, 484.0),
-                   "conditional_slab_exchange[batched]": (0.493, 474.0),
-                   "conditional_slab_exchange": (0.130, 81.0)}
-
-
-def _print_redesign_times(rows) -> None:
-    by = {r["name"]: r for r in rows}
-    for name, (ms, us) in PREVIOUS_DESIGN.items():
-        r = by[name]
-        extra = (f", bound at the non-FMA rate {r['bound_nonfma_ms']:.4f} ms"
-                 if "bound_nonfma_ms" in r else "")
-        lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.3f}")
-        print(f"{name}: {r['ms']:.3f} ms (previous design {ms}), device us "
-              f"per call {r['device_ms'] * 1e3:.2f} (previous design {us}), "
-              f"library ms {lib}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}){extra}", flush=True)
     for name in ("splat_bin", "splat_composite"):
         r = by[name]
         p = r["pairs"]
@@ -3413,8 +3370,7 @@ def main() -> int:
     rows = (check_kernels(cam_ops) + check_belief_kernels(cam_ops)
             + check_batched_kernels() + check_render_select_kernels())
     del cam_ops
-    _print_belief_times(rows)
-    _print_redesign_times(rows)
+    _print_render_pairs(rows)
     _print_exchange_times(rows)
     main_run, ds, scans = main_path()
     bcounts = batched_path()

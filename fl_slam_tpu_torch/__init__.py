@@ -6,9 +6,9 @@ are the chunked ``replay`` under every configuration of the reference
 (``GCConfig()``: the bank of K = 4 and the per-slot view; ``small()``;
 ``tpu()``; real MHT), for one instance or, batched under
 ``torch.func.vmap``, for many independent instances on one card
-(``parallel.replicas``); the evaluation entry points (``eval``,
-``bench``); the ``select_kernel`` selection branch; the camera; and the
-map's render, BEV, export and checkpoint (``render``, ``checkpoint``).
+(``parallel.replicas``); the evaluation entry points (``eval``); the
+``select_kernel`` selection branch; the camera; and the map's render, BEV,
+export and checkpoint (``render``, ``checkpoint``).
 Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
 Hopper (``csrc/``): K1 predict + evidence and K2 the scalar belief tail
 (the K=1 belief chain), K3 Sinkhorn, K4 moment segment-sum, K5 conditional

@@ -6,13 +6,20 @@ The port runs every configuration the reference runs: ``GCConfig()`` (the
 reference-parity bank of K = 4 and the per-slot view), ``small()``,
 ``tpu()`` and real MHT (``hyp_init_spread_*`` > 0).
 
-The kernel switches ``sinkhorn_kernel``, ``surfel_moment_kernel``,
-``fuse_moment_kernel`` and ``slab_dma_kernel`` pick, in the reference,
-between a TPU kernel and an XLA form of the same function (and on the CPU
-the reference takes the XLA form whatever they say). The port has one
-implementation of each: the hand-written CUDA kernel (K3, K4, K5) on CUDA
-tensors, its plain PyTorch twin on CPU tensors. So it accepts these
-switches either way and runs the same code; ``fuse_moment_kernel=False``
+Eighteen fields are accepted and read nowhere in the port: ``eps_den``,
+``weight_floor``, ``c_dt``, ``c_ex``, ``odom_z_variance_prior``,
+``ringbuf_len``, ``surfel_max_occupants``, ``r_stencil_xy`` and
+``r_stencil_z`` (only the unread ``n_stencil_tiles`` property uses them),
+``kappa_min``, ``kappa_max``, ``fuse_chunk``, ``assoc_block``,
+``scan_unroll`` (only ``validate()`` reads it) and the kernel switches
+``slab_dma_kernel``, ``sinkhorn_kernel``, ``fuse_moment_kernel`` and
+``surfel_moment_kernel``. They stay because the copy is the reference's
+field for field, so that one set of keyword arguments builds both
+configurations; ``tests/test_torch_core.py`` holds this list. The kernel
+switches pick, in the reference, between a TPU kernel and an XLA form of
+the same function. The port has one implementation of each: the
+hand-written CUDA kernel (K3, K4, K5) on CUDA tensors, its plain PyTorch
+twin on CPU tensors, whatever the switch says; ``fuse_moment_kernel=False``
 does not become a float-atomic ``index_add_``, which would break the
 bit-identical reruns. ``belief_kernel`` runs K1/K2 only at ``k_hyp=1``, as
 in the reference.
@@ -404,14 +411,9 @@ class GCConfig:
     # membership; the CPU parity default). Requires m_tile % view_page == 0
     # and m_tile_view % view_page == 0.
     view_page: int = 0
-    # Use the Pallas predicated-DMA slab exchange (structures/atlas_kernels).
-    # Must be False on paths that vmap process_scan (batched replicas):
-    # pallas_call has no batching rule; the XLA fallback vmaps fine.
+    # Not read by the port (module docstring).
     slab_dma_kernel: bool = True
-    # Run the unbalanced-Sinkhorn fixed point as one Pallas kernel
-    # (ops/assoc_kernels.py) instead of an unrolled XLA loop (~300
-    # dispatch-floor HLOs/scan). TPU-only (auto-falls back elsewhere);
-    # same vmap caveat as slab_dma_kernel.
+    # Not read by the port (module docstring).
     sinkhorn_kernel: bool = True
     # Fuse the candidate SELECTION (proxy cost + top-k) into one Pallas
     # kernel (ops/assoc_kernels.select_candidates): the cost is bilinear in
@@ -421,18 +423,9 @@ class GCConfig:
     # TPU-only with N, V multiples of 128 (auto-falls back elsewhere);
     # same vmap caveat as slab_dma_kernel.
     select_kernel: bool = False
-    # Route the compact-fuse scatter-add (N*K contribution rows into the
-    # (V, CF) view delta) through the factored one-hot MXU moment kernel
-    # instead of XLA's row-serialized scatter (~0.13 ms/scan-instance, the
-    # TOP op in the batched trace; same contraction as the surfel moment
-    # kernel). bf16x2-exact (~1e-5 rel on the fused deltas). TPU-only with
-    # V and N*K multiples of 128 (auto-falls back elsewhere).
+    # Not read by the port (module docstring).
     fuse_moment_kernel: bool = False
-    # Run the surfel per-cell moment accumulation as one Pallas kernel
-    # (ops/surfel_kernels.py): factored one-hot MXU contraction instead of
-    # XLA's row-serialized scatter-add (~60 us/scan traced). bf16x2-exact on
-    # cell-local coordinates. TPU-only with n_points and n_cells multiples
-    # of 128 (auto-falls back elsewhere); same vmap caveat.
+    # Not read by the port (module docstring).
     surfel_moment_kernel: bool = False
     # Paged insert write-back as a DENSE target-page rewrite (merge the SK
     # proposals into the gathered page, write the same contiguous page
@@ -487,13 +480,7 @@ class GCConfig:
     # duplicates persist <= view_refresh_every-1 extra scans; in paged mode
     # mid-chunk inserts are not view-matchable before the refresh anyway.
     merge_at_chunk: bool = False
-    # Unroll factor for the inner per-scan lax.scan of the chunked replay
-    # (and the flat replay when view_refresh_every == 1). Numerics are
-    # identical (same ops, same order per scan). Measured on v5e: unroll=2
-    # is throughput-NEUTRAL (1.613 vs 1.591 ms/scan) — TPU executes the
-    # fused program single-stream and the replay trace shows <2% idle
-    # between ops, so there is no cross-iteration overlap to win; kept as
-    # a tuning knob for future hardware where iteration boundaries cost.
+    # Not read by the port (module docstring).
     scan_unroll: int = 1
 
     # ------------------------------------------------------------------

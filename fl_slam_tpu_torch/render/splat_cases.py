@@ -1,8 +1,7 @@
 """The inputs K8's checks and measurements run on, and the work their data
 needs: a seeded splat scene, the binning's edge tables, and the counts of
 (tile, splat) pairs that stage 1 scores and of (pixel, splat) pairs that
-change stage 2's blend. ``chip_smoke.py``, ``render_split`` and the tests
-share them.
+change stage 2's blend. ``chip_smoke.py`` and the tests share them.
 """
 
 from __future__ import annotations

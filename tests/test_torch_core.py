@@ -7,7 +7,9 @@ that are zero up to rounding) leaves room without hiding a wrong formula.
 Discrete outputs (top-k indices, tile keys, cell ids) must be equal.
 """
 
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -115,6 +117,39 @@ def test_init_state_matches_reference(base, override):
             np.testing.assert_allclose(g, w, rtol=1e-6 if w.dtype ==
                                        np.float32 else RTOL, atol=ATOL,
                                        err_msg=name)
+
+
+# The fields the port accepts, for the copy's sake, and never reads (the
+# module docstring of fl_slam_tpu_torch/config.py names them).
+UNREAD_FIELDS = {"eps_den", "weight_floor", "c_dt", "c_ex",
+                 "odom_z_variance_prior", "ringbuf_len",
+                 "surfel_max_occupants", "r_stencil_xy", "r_stencil_z",
+                 "kappa_min", "kappa_max", "fuse_chunk", "assoc_block",
+                 "scan_unroll", "slab_dma_kernel", "sinkhorn_kernel",
+                 "fuse_moment_kernel", "surfel_moment_kernel"}
+
+
+def test_config_fields_read_are_all_but_the_unread_list():
+    """Every field is read somewhere in the package outside ``config.py``
+    (an attribute load, or its name as a string, as in the belief kernels'
+    ``getattr`` tables), except the listed ones, which are read nowhere. A
+    keyword argument is not a read: ``cfg.replace(x=...)`` writes, and a
+    keyword may only share a field's name."""
+    root = Path(tcfg.__file__).parent
+    seen = set()
+    for path in root.rglob("*.py"):
+        if path == Path(tcfg.__file__):
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute) and isinstance(node.ctx,
+                                                              ast.Load):
+                seen.add(node.attr)
+            elif isinstance(node, ast.Constant) and isinstance(node.value,
+                                                               str):
+                seen.add(node.value)
+    fields = {f.name for f in dataclasses.fields(tcfg.GCConfig)}
+    assert UNREAD_FIELDS <= fields
+    assert fields - seen == UNREAD_FIELDS
 
 
 def test_validate_matches_reference():

@@ -1,8 +1,8 @@
 """The port's evaluation path against the JAX package's: the certificate
 audit layer, ``save_tum``, ``replay_segments``, the ``run_eval`` entry
 point on a Kimera-layout fixture bag (one shot and streamed, camera off and
-on) and on synthetic data with the camera, the accuracy tool and the bench,
-and the refusal of every new entry point to run without a card unless
+on) and on synthetic data with the camera, the accuracy tool, and the
+refusal of every new entry point to run without a card unless
 asked for the CPU.
 
 Config: ``SMALL_SLICE`` below (``GCConfig.small`` with one hypothesis,
@@ -36,7 +36,7 @@ from fl_slam_tpu.eval import metrics as jmetrics
 from fl_slam_tpu.io import kimera as jkimera
 from fl_slam_tpu.io import rosbag as jrosbag
 from fl_slam_tpu.io import synthetic as jsyn
-from fl_slam_tpu_torch import bench, certs, pipeline
+from fl_slam_tpu_torch import certs, pipeline
 from fl_slam_tpu_torch.config import GCConfig as TCfg
 from fl_slam_tpu_torch.eval import accuracy, metrics, run_eval
 from fl_slam_tpu_torch.io import kimera, rosbag
@@ -446,24 +446,6 @@ def test_accuracy_tool_matches_reference(cfgs, jax_run, tmp_path):
     assert jfeatures.LAST_BACKEND == "native"
 
 
-def test_bench_prints_one_json_line(capsys):
-    r = bench.main(["--cpu", "--instances", "2"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and json.loads(lines[0]) == json.loads(
-        json.dumps(r))
-    e2e = r["extra"]["end_to_end"]
-    assert r["value"] == e2e["x_realtime"] > 0
-    assert r["config"] == "small"
-    assert r["extra"]["replay"]["scans"] == bench.CPU_SIZES["scans"]
-    assert e2e["scans"] == 4 and e2e["staging_backend"] == "native"
-    assert len(e2e["stage_s_per_segment"]) == 2
-    cam = r["extra"]["e2e_camera"]
-    assert cam["scans"] == cam["camera_scans"] == 4
-    assert set(e2e) < set(cam) and cam["x_realtime"] > 0
-    assert len(cam["wait_s_per_segment"]) == 2
-    assert r["extra"]["batched"]["instances"] == 2
-
-
 def test_entry_points_refuse_without_a_card(monkeypatch, bag, tmp_path,
                                             cfgs):
     tc = cfgs[0]
@@ -476,7 +458,6 @@ def test_entry_points_refuse_without_a_card(monkeypatch, bag, tmp_path,
                                "--profile", "kimera", "--seg-len", "2",
                                "--stream"]),
         lambda: accuracy.main(["--scans", "2", "--seeds", "1"]),
-        lambda: bench.main([]),
         lambda: rosbag.to_scan_inputs(recs, tc),
         lambda: next(rosbag.scan_input_segments(recs, tc, SEG)),
         lambda: rosbag.StreamingStager(bag[0], kimera.KIMERA_TOPICS, tc, SEG),

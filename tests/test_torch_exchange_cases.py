@@ -1,10 +1,13 @@
 """The slab exchange's edge cases and byte counts
 (``structures/exchange_cases.py``), which the CUDA tests and
-``chip_smoke.py`` hold K5 / K7 / K10 at, and the pose digests that hold
+``chip_smoke.py`` hold K5 / K7 / K10 at, the pose digests that hold
 two trees of the port to the same trajectories
-(``pose_digest.py``)."""
+(``pose_digest.py``), and the refusal of both scripts to run without a
+card."""
 
 import hashlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -106,3 +109,13 @@ def test_pose_digest_wants_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert pose_digest.main([]) == 2
+
+
+def test_chip_smoke_wants_a_card(monkeypatch, capsys):
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err

@@ -4,8 +4,8 @@ package's ``render_pallas``, the sort-key map the binning kernel mirrors
 against ``torch.sort``, the plain binning (``bin_plain``) against a
 reference that orders by those keys as the kernel does, the binning's
 cull (every pair it does not list scores -inf), the compositing's culling
-and early exit as exact identities, both stages' launch plans and
-refusals, and the stamp anchors of ``render_split --stamps``.
+and early exit as exact identities, and both stages' launch plans and
+refusals.
 
 Tolerances. The score: f32, 1e-5 relative plus 1e-5 absolute (the two
 packages project and invert in another order, so uv and the inverse
@@ -35,7 +35,6 @@ from fl_slam_tpu_torch.render.splat_cases import (BIN_EDGE_CASES,
                                                   bin_edge_table,
                                                   listed_pairs, row_listed,
                                                   seeded_scene)
-from fl_slam_tpu_torch.render_split import BIN_ANCHORS
 
 CAM = dict(fx=120.0, fy=120.0, cx=64.0, cy=48.0, width=256, height=96)
 POSE = [0.05, -0.02, 0.0, 0.02, -0.03, 0.01]
@@ -479,20 +478,3 @@ def test_bin_tiles_refuses_what_it_does_not_take():
         sk.bin_tiles(t, 2, 2, 0)
     with pytest.raises(ValueError, match="device"):
         sk.bin_tiles(t.to("meta"), 2, 2, 8)
-
-
-# render_split --stamps: its anchors resolve, in order, inside bin_kernel,
-# and the stamped copy carries one stamp per anchor.
-def test_stage1_stamp_anchors_resolve_in_bin_kernel():
-    from fl_slam_tpu_torch import phase_split
-    src = (cuda_build.CSRC / "splat_composite.cu").read_text()
-    lines = phase_split.stamp_lines(src, BIN_ANCHORS)
-    text = src.split("\n")
-    start = next(i for i, l in enumerate(text) if l.startswith("bin_kernel("))
-    stop = next(i for i, l in enumerate(text) if "cull_box(float4" in l)
-    assert lines == sorted(set(lines))
-    assert start + 1 < lines[0] and lines[-1] < stop + 1
-    stamped = phase_split.stamped_source(src, lines, '#include "common.cuh"')
-    calls = [l for l in stamped.split("\n") if l.startswith("stamp_(")]
-    assert calls == [f"stamp_({i});" for i in range(len(BIN_ANCHORS))]
-    assert stamped.count("__device__ unsigned long long g_stamp") == 1
