@@ -47,7 +47,16 @@ Phases (any failure raises and the script exits non-zero without a result):
      operand stacked with the edges, every instance held to the twin and
      bit for bit the one-matrix launch's, reruns bit for bit; and its time
      at B = 1 and 8 (eager, device, graph replay) beside the plain chain's
-     and the launch floor;
+     and the launch floor; K12 (the IMU window) likewise, in f32 and f64
+     on the operands captured from ``GCConfig.tpu()``'s and
+     ``GCConfig()``'s replays, a synthetic window and
+     ``ops.imu_window_cases``' edges (every stamp zero, one valid sample,
+     all 512 valid, both windows empty, tied transport errors, M = 64),
+     each entry of its row within its tolerance of the twin's, reruns bit
+     for bit; batched on the batched replay's operands (B = 8) and on four
+     windows sharing their samples, each window bit for bit its one-window
+     launch's; each entry's worst share of its tolerance; its time at B = 1
+     and 8 beside the plain chain's;
   4. replay ``GCConfig.tpu()`` (the belief kernels K1/K2 on) and then
      ``GCConfig.tpu(belief_kernel=False)`` over 100 synthetic
      drifting-odometry scans each (seed 3, 10 chunks), each after a
@@ -269,19 +278,27 @@ def _device_ms(fn, reps: int = 20, expect=None, tries: int = 3) -> float:
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # The profiler can drop a session's first device record (one
+            # launch of 20, on every try, in some process states): a spin
+            # kernel goes first, and its record, kept or dropped, is left
+            # out of the sums.
+            torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
+        events = [e for e in prof.key_averages()
+                  if "spin_kernel" not in e.key]
         ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
         seen = {k: sum(e.count for e in events if f"::{k}(" in e.key)
                 for k in expect or {}}
         if ms > 0 and all(seen[k] == n * reps
                           for k, n in (expect or {}).items()):
             return ms
+    records = [(e.key, e.count) for e in events
+               if e.self_device_time_total > 0]
     raise AssertionError(f"the profiler recorded {ms} device ms per call "
                          f"and launches {seen} for {reps} calls, expected "
-                         f"{expect} per call")
+                         f"{expect} per call; device records: {records}")
 
 
 def _bound_ms(n_bytes: float, n_ops: float,
@@ -1743,7 +1760,8 @@ def check_belief_kernels(cam_ops: dict) -> list:
             bound_ms=bound, bound_by=by, library_ms=None,
             shape="22x22 belief, f32 (captured operands)", checks=checks))
     return rows + _pose6_rows(off["pose6_conditioning"][0][0],
-                              cam_ops["pose6_conditioning"][0][0])
+                              cam_ops["pose6_conditioning"][0][0]) + \
+        _imu_window_rows()
 
 
 def _graph_ms(fn) -> float:
@@ -1905,6 +1923,199 @@ def _pose6_rows(captured, camera) -> list:
     return rows
 
 
+def _captured_imu_window_batch(n_scans: int = 12) -> list:
+    """K12's (B, ...) operands at its last batched launch in an eager
+    batched replay of ``GCConfig.tpu()`` over N_INST instances (seeds
+    SEED + 1 ..), as phase 6 runs it; f64 on the CPU."""
+    import torch
+    from fl_slam_tpu_torch import graphs
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    from fl_slam_tpu_torch.parallel import replicas
+
+    cfg = GCConfig.tpu()
+    dss = [simulate(cfg, n_scans=n_scans, seed=SEED + 1 + i,
+                    odom_drift_vel_scale=1.03, odom_drift_yaw_rate=0.01)
+           for i in range(N_INST)]
+    mesh = replicas.make_mesh()
+    scans = replicas.shard_scan_inputs(replicas.stack_instances(
+        [to_scan_inputs(d, cfg) for d in dss]), mesh)
+    states = replicas.init_states_batched(
+        cfg, N_INST, anchors0=[d.gt_poses[0] for d in dss],
+        t0=[float(d.gt_stamps[0]) - 0.1 for d in dss], mesh=mesh)
+    seen, real, reason = [], bk._imu_window_launch, graphs.eager_reason
+
+    def hooked(ins, *a, **kw):
+        seen[:] = [t.clone() for t in ins]
+        return real(ins, *a, **kw)
+
+    bk._imu_window_launch = hooked
+    graphs.eager_reason = lambda dev: "hooked"
+    try:
+        replicas.batched_replay(cfg, mesh)(states, scans)
+    finally:
+        bk._imu_window_launch = real
+        graphs.eager_reason = reason
+    del states, scans
+    torch.cuda.empty_cache()
+    if seen[0].dim() != 2 or seen[0].shape[0] != N_INST:
+        raise AssertionError(f"K12 capture: stamps {tuple(seen[0].shape)}, "
+                             f"expected ({N_INST}, M)")
+    return [t.cpu().double() for t in seen]
+
+
+def _imu_window_checks(inputs: str, ops, dims=None) -> list:
+    """K12 on ``ops`` (f64, CPU; with ``dims``, windows under ``vmap``) in
+    f32 and f64: one launch a call, a rerun bit for bit, each window's row
+    held to the twin's (``imu_window_cases.held``) and, batched, bit for
+    bit its one-window launch's; raises where one fails."""
+    import torch
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    from fl_slam_tpu_torch.ops import imu as imu_ops
+    from fl_slam_tpu_torch.ops import imu_window_cases as ic
+
+    dev = torch.device("cuda")
+    eps = dict(eps_mass=ic.EPS_MASS, eps_psd=ic.EPS_PSD)
+
+    def call(*a):
+        return bk.imu_window_packed(*a, **eps)
+
+    def one(ts, b):
+        return ts if dims is None else [t if d is None else t[b]
+                                        for t, d in zip(ts, dims)]
+    fn = call if dims is None else torch.func.vmap(call, in_dims=dims)
+    key = "imu_window" if dims is None else "imu_window_batched"
+    out = []
+    for dt in (torch.float32, torch.float64):
+        x = [t.to(dev, dt) for t in ops]
+        f32 = [t.to(dev, torch.float32) for t in ops]
+        before = dict(bk.launches)
+        row = fn(*x)
+        launched = {k: bk.launches[k] - before[k] for k in before
+                    if bk.launches[k] != before[k]}
+        rerun = torch.equal(row, fn(*x))
+        n = 1 if dims is None else row.shape[0]
+        rows, single, res = row.reshape(n, -1), True, None
+        for b in range(n):
+            if dims is not None:
+                single &= torch.equal(rows[b], call(*one(x, b)))
+            r = ic.held(
+                rows[b], imu_ops.imu_window_plain(*one(x, b), **eps),
+                imu_ops.imu_window_plain(*one(f32, b), **eps),
+                imu_ops.imu_window_plain(*[t.double() for t in one(f32, b)],
+                                         **eps), dt)
+            if res is None or not r["ok"] or \
+                    r["worst_share"] > res["worst_share"]:
+                res = dict(r, window=b)
+            if not r["ok"]:
+                break
+        dname = str(dt).replace("torch.", "")
+        out.append(dict(inputs=inputs, dtype=dname, B=n, launches=launched,
+                        rerun_identical=rerun, single_identical=single,
+                        **res))
+        if not (res["ok"] and rerun and single and launched == {key: 1}):
+            raise AssertionError(f"K12 ({inputs}, {dname}): {res}, launches "
+                                 f"{launched}, rerun identical {rerun}, "
+                                 f"each window its one-window launch's "
+                                 f"{single}")
+    return out
+
+
+def _imu_window_rows() -> list:
+    """Phase 3, K12: the kernel against its plain twin (both on the card)
+    in f32 and f64 on the operands ``GCConfig.tpu()``'s and ``GCConfig()``'s
+    replays hand it, a synthetic window and ``ops.imu_window_cases``'
+    edges; batched (``vmap``, one launch) on the operands of phase 6's
+    batched replay (B = N_INST) and on four windows sharing the samples
+    and gravity (the bank's view) (``_imu_window_checks``); each entry's
+    worst share of its tolerance over them; then its time at B = 1 and
+    B = N_INST beside the plain chain's (eager, device, graph replay) and
+    the launch floor."""
+    import torch
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.ops import belief_kernels as bk
+    from fl_slam_tpu_torch.ops import imu as imu_ops
+    from fl_slam_tpu_torch.ops import imu_window_cases as ic
+
+    tpu = ic.captured(GCConfig.tpu())
+    batch = _captured_imu_window_batch()
+    checks = _imu_window_checks("captured GCConfig.tpu()", tpu)
+    checks += _imu_window_checks("captured GCConfig()",
+                                 ic.captured(GCConfig()))
+    checks += _imu_window_checks("synthetic", ic.operands(SEED))
+    for case in ic.EDGE_CASES:
+        checks += _imu_window_checks(case, ic.edge(case, SEED))
+    batched = _imu_window_checks(f"batched replay (B = {N_INST})", batch,
+                                 dims=(0,) * 11)
+    shared = (None, None, None, 0, 0, 0, 0, 0, 0, None, 0)
+    four = [torch.stack(ts) for ts in zip(*[ic.operands(SEED + s)
+                                            for s in range(4)])]
+    batched += _imu_window_checks(
+        "four sharing the samples (B = 4)",
+        [t[0] if d is None else t for t, d in zip(four, shared)], shared)
+    shares = {}
+    for c in checks + batched:
+        for k, v in c["shares"].items():
+            shares[k] = max(shares.get(k, 0.0), v)
+    dev = torch.device("cuda")
+    eps = dict(eps_mass=ic.EPS_MASS, eps_psd=ic.EPS_PSD)
+    one = torch.zeros(1, device=dev)
+    floor = _device_ms(lambda: one.add_(1))
+    x1 = [t.to(dev, torch.float32) for t in tpu]
+    x8 = [t.to(dev, torch.float32) for t in batch]
+    vmap = torch.func.vmap
+    M = x1[0].shape[0]
+    rows = []
+    for key, B, kern, plain, mine in (
+            ("imu_window", 1, lambda: bk.imu_window_packed(*x1, **eps),
+             lambda: imu_ops.imu_window_plain(*x1, **eps), checks),
+            ("imu_window[batched]", N_INST,
+             lambda: vmap(lambda *a: bk.imu_window_packed(*a, **eps))(*x8),
+             lambda: vmap(lambda *a: imu_ops.imu_window_plain(*a, **eps))(
+                 *x8), batched)):
+        # Each window's 7M + 22 operands read once and its 74 + M entries
+        # written; ~1,100 operations a sample (both windows' so3_exp, five
+        # prefix levels, the combine, R_before, the accelerations and the
+        # scan; the transport error; the sums), none fused.
+        bound, by = _bound_ms(B * (8 * M + 96) * 4, B * M * 1100,
+                              H100_F32_NONFMA_OPS_PER_S)
+        worst = max(mine, key=lambda c: c["worst_share"])
+        rows.append(dict(
+            name=key, launch_key=key, route="cuda",
+            source="fl_slam_tpu_torch/csrc/imu_window.cu",
+            replaces="none (the reference leaves the IMU window to XLA)",
+            site="steps 3-4 and the window reductions of step 6 "
+                 "(pipeline._scan_core)",
+            worst_share=worst["worst_share"],
+            worst_entry=worst["worst_entry"],
+            worst_inputs=f"{worst['inputs']}, {worst['dtype']}",
+            tolerance_is=f"per entry: {ic.GAP_FACTOR} x the f32 twin's gap "
+                         f"to the f64 twin (scaled to the dtype) + "
+                         f"{ic.ULPS} eps of its magnitude",
+            entry_worst_shares=shares if B == 1 else None,
+            ms=_time_ms(kern), device_ms=_device_ms(
+                kern, expect={"imu_window_kernel<float>": 1}),
+            graph_ms=_graph_ms(kern), plain_ms=_time_ms(plain, reps=5),
+            plain_device_ms=_device_ms(plain, reps=5),
+            plain_graph_ms=_graph_ms(plain), launch_floor_device_ms=floor,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=f"B = {B}, M = {M}, f32 (captured operands)",
+            checks=mine))
+        print(f"K12 {key}: {rows[-1]['ms'] * 1e3:.2f} us a call, device "
+              f"{rows[-1]['device_ms'] * 1e3:.2f} us, graph replay "
+              f"{rows[-1]['graph_ms'] * 1e3:.2f} us; the plain chain "
+              f"{rows[-1]['plain_ms']:.3f} ms eager, device "
+              f"{rows[-1]['plain_device_ms']:.3f} ms, graph replay "
+              f"{rows[-1]['plain_graph_ms']:.3f} ms; launch floor "
+              f"{floor * 1e3:.2f} us; worst share of a tolerance "
+              f"{worst['worst_share']:.3f} ({worst['worst_entry']}, "
+              f"{worst['inputs']}, {worst['dtype']})", flush=True)
+    print("K12 worst share of each entry's tolerance: "
+          + json.dumps({k: round(v, 4) for k, v in shares.items()}),
+          flush=True)
+    return rows
+
 def _print_render_pairs(rows) -> None:
     """K8's two stages: time, the share of pairs each stage's data needs,
     and the bounds from those pairs and from the dense grid."""
@@ -1976,21 +2187,24 @@ _COUNT_KEYS = {
     "splat_composite": (4, "splat_composite"),
     "pose6_cond": (2, "pose6_cond"),
     "pose6_cond[batched]": (2, "pose6_cond_batched"),
+    "imu_window": (2, "imu_window"),
+    "imu_window[batched]": (2, "imu_window_batched"),
 }
 
 _SINGLE_PATH = ("predict_evidence", "scalar_tail", "sinkhorn_piT",
                 "moment_segment_sum[surfels]", "moment_segment_sum[fuse]",
-                "conditional_slab_exchange_ff", "pose6_cond")
+                "conditional_slab_exchange_ff", "pose6_cond", "imu_window")
 _SELECT_PATH = ("select_candidates", "select_candidates[batched]")
 _RENDER_PATH = ("splat_bin", "splat_composite")
 
 
-def _k11(cfg, n: int) -> dict:
-    """K11's launches in ``n`` one-instance scans: one a scan, batched
-    where the bank's ``vmap`` runs the scan's tail (no K1 / K2)."""
+def _k11_k12(cfg, n: int) -> dict:
+    """K11's and K12's launches in ``n`` one-instance scans: one each a
+    scan, K11's batched where the bank's ``vmap`` runs the scan's tail (no
+    K1 / K2); K12 runs outside the bank."""
     from fl_slam_tpu_torch.ops.belief_kernels import use_belief_kernels
     return {"pose6_cond" if use_belief_kernels(cfg)
-            else "pose6_cond[batched]": n}
+            else "pose6_cond[batched]": n, "imu_window": n}
 
 
 def _reset_counts():
@@ -2094,11 +2308,11 @@ def main_path() -> dict:
                 "conditional_slab_exchange_ff": N_SCANS // R}
     main = run_replay(cfg, "GCConfig.tpu()", dict(
         per_scan, predict_evidence=N_SCANS, scalar_tail=N_SCANS,
-        **_k11(cfg, N_SCANS)), ds, scans)
+        **_k11_k12(cfg, N_SCANS)), ds, scans)
     cfg_off = GCConfig.tpu(belief_kernel=False)
     run_replay(cfg_off, "GCConfig.tpu(belief_kernel=False)",
                dict(per_scan, predict_evidence=0, scalar_tail=0,
-                    **_k11(cfg_off, N_SCANS)), ds, scans)
+                    **_k11_k12(cfg_off, N_SCANS)), ds, scans)
 
     # Phase 5: two 20-scan replays from fresh states give identical poses.
     def fresh():
@@ -2229,6 +2443,7 @@ def _batched_run(cfg, dss, label: str, tol: float = 1e-3) -> dict:
         want["page_gather_ff"] = want["page_writeback_ff"] = T
     want["conditional_slab_exchange_ff[batched]"] = T // R
     want["pose6_cond[batched]"] = T       # one launch a batched scan
+    want["imu_window[batched]"] = T
     for name, n in counts.items():
         if n != want[name]:
             raise AssertionError(f"{label}: {name} launched {n} times, "
@@ -2321,7 +2536,7 @@ def select_path(main: dict, ds, scans) -> dict:
             "sinkhorn_piT": N_SCANS, "moment_segment_sum[surfels]": N_SCANS,
             "moment_segment_sum[fuse]": N_SCANS,
             "conditional_slab_exchange_ff": N_SCANS // R,
-            "select_candidates": N_SCANS, **_k11(cfg, N_SCANS)}
+            "select_candidates": N_SCANS, **_k11_k12(cfg, N_SCANS)}
     res = run_replay(cfg, "GCConfig.tpu(select_kernel=True)", want, ds,
                      scans)
     print("select: " + json.dumps(dict(
@@ -2619,7 +2834,7 @@ def _bag_launches(cfg, n: int) -> dict:
     return {"predict_evidence": n, "scalar_tail": n, "sinkhorn_piT": n,
             "moment_segment_sum[surfels]": n, "moment_segment_sum[fuse]": n,
             "conditional_slab_exchange_ff": n // cfg.view_refresh_every,
-            **_k11(cfg, n)}
+            **_k11_k12(cfg, n)}
 
 
 def bag_path(tmp: str) -> dict:
@@ -2845,7 +3060,7 @@ def camera_path() -> dict:
                 "sinkhorn_piT": T, "moment_segment_sum[surfels]": T,
                 "moment_segment_sum[fuse]": T,
                 "conditional_slab_exchange_ff": T // cfg.view_refresh_every,
-                **_k11(cfg, T)}
+                **_k11_k12(cfg, T)}
 
     def staged(cfg, n, seed, camera, **kw):
         t0 = time.perf_counter()
@@ -3045,7 +3260,7 @@ def reference_config_path(main: dict) -> list:
     a = run_replay(cfg, "GCConfig()", {
         "sinkhorn_piT": N_SCANS, "moment_segment_sum[surfels]": N_SCANS,
         "moment_segment_sum[fuse]": N_SCANS,
-        "conditional_slab_exchange_ff": N_SCANS, **_k11(cfg, N_SCANS)},
+        "conditional_slab_exchange_ff": N_SCANS, **_k11_k12(cfg, N_SCANS)},
         ds, scans)
     head = _slice(scans, N_RERUN)
     p1 = run(cfg, ds, head)[1].pose
@@ -3168,7 +3383,7 @@ def _single_launches(cfg, n_scans: int, n_exchanges: int) -> dict:
             "conditional_slab_exchange_ff": n_exchanges}
     if use_belief_kernels(cfg):
         want["predict_evidence"] = want["scalar_tail"] = n_scans
-    return dict(want, **_k11(cfg, n_scans))
+    return dict(want, **_k11_k12(cfg, n_scans))
 
 
 def _held_counts(label: str, counts: dict, want: dict) -> dict:

@@ -31,7 +31,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("sinkhorn", "moment", "slab_exchange", "page_io",
            "predict_evidence", "scalar_tail", "splat_composite", "select",
-           "pose6_cond")
+           "pose6_cond", "imu_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # The belief kernels round every product, as their plain versions do: K1's
@@ -41,12 +41,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # K9 build the same way, so that they round as their plain versions'
 # separate elementwise products and sums do (K8's binning scores and reach
 # tests, every one, bit for bit). K11 builds the same way, so that its
-# Jacobi rotations round as the plain chain's separate products and sums.
+# Jacobi rotations round as the plain chain's separate products and sums,
+# and K12 so that its prefix products and window sums do.
 EXTRA_FLAGS = {"predict_evidence": ("-fmad=false",),
                "scalar_tail": ("-fmad=false",),
                "splat_composite": ("-fmad=false",),
                "select": ("-fmad=false",),
-               "pose6_cond": ("-fmad=false",)}
+               "pose6_cond": ("-fmad=false",),
+               "imu_window": ("-fmad=false",)}
 
 # Each library's C entry points by the codes of their arguments before the
 # stream (p: pointer, i: int, q: 64-bit int, d: double); every entry point
@@ -70,6 +72,8 @@ ENTRY_POINTS = {
                "select_f64": "pppppp" + "i" * 9},
     "pose6_cond": {"pose6_cond_f32": "pqqqppid",
                    "pose6_cond_f64": "pqqqppid"},
+    "imu_window": {"imu_window_f32": "pq" * 11 + "piidd",
+                   "imu_window_f64": "pq" * 11 + "piidd"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
            "d": ctypes.c_double}

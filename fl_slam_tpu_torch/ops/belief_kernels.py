@@ -35,6 +35,7 @@ here checks a status on the host (no ``torch.linalg.cholesky``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -46,6 +47,7 @@ from fl_slam_tpu_torch.config import (D_Z, GRAVITY_W, IDX_BA, IDX_DT, IDX_EX,
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.core.linalg import eigvalsh_jacobi, project_psd3
 from fl_slam_tpu_torch.core.vmf import kappa_from_resultant
+from fl_slam_tpu_torch.ops import imu as imu_ops
 from fl_slam_tpu_torch.runtime import instance_first
 
 # Cert scalars K2 emits, in vector order.
@@ -120,7 +122,8 @@ _IW_STARTS = (0, 3, 6, 9, 12, 15, 16)
 
 launches = {"predict_evidence": 0, "scalar_tail": 0,
             "predict_evidence_batched": 0, "scalar_tail_batched": 0,
-            "pose6_cond": 0, "pose6_cond_batched": 0}
+            "pose6_cond": 0, "pose6_cond_batched": 0,
+            "imu_window": 0, "imu_window_batched": 0}
 
 
 def use_belief_kernels(cfg: GCConfig) -> bool:
@@ -1003,3 +1006,102 @@ def pose6_cond(L_evidence, eps_cond: float):
         raise ValueError(f"pose6_cond: operand has shape {shape}, expected "
                          "(D, D) with D >= 6")
     return _pose6_op(L_evidence, float(eps_cond))
+
+
+# ---------------------------------------------------------------------------
+# K12: the IMU window (csrc/imu_window.cu).
+# ---------------------------------------------------------------------------
+
+IMU_WINDOW_MAX_M = 1024      # the kernel's chunk totals fit one warp
+
+
+def _iw_shapes(M: int):
+    """The operands of ``imu_window_plain``: stamps, gyro, accel, prev_scan_t,
+    scan_start, scan_end, sigma_dt, gyro_bias, accel_bias, gravity_w,
+    R_prev."""
+    return ((M,), (M, 3), (M, 3), (), (), (), (), (3,), (3,), (3,), (3, 3))
+
+
+def _dense_rows(t):
+    """``t`` with every axis after the first laid out densely (a copy only
+    where it is not): the kernel reads an operand through its first
+    stride."""
+    step = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != step:
+            return t.contiguous()
+        step *= size
+    return t
+
+
+def _imu_window_launch(ins, eps_mass: float, eps_psd: float):
+    """K12 on operands with the same leading instance axes (none: one
+    window): one block a window, each operand read through its instance
+    stride (0: shared)."""
+    M = ins[0].shape[-1]
+    lead = ins[0].shape[:-1]
+    launches["imu_window_batched" if lead else "imu_window"] += 1
+    flat = [_dense_rows(t.reshape(-1, *s) if lead else t[None])
+            for t, s in zip(ins, _iw_shapes(M))]
+    B = flat[0].shape[0]
+    like = flat[0]
+    lib = cuda_build.library("imu_window")
+    fn = (lib.imu_window_f32 if like.dtype == torch.float32
+          else lib.imu_window_f64)
+    out = torch.empty((B, imu_ops.IMU_WINDOW_HEADER_LEN + M),
+                      dtype=like.dtype, device=like.device)
+    args = [v for t in flat for v in (t.data_ptr(), t.stride(0))]
+    cuda_build.launch(lib, fn, "imu_window", like.device, *args,
+                      out.data_ptr(), B, M, eps_mass, eps_psd)
+    return out.reshape(*lead, -1)
+
+
+@torch.library.custom_op("fl_slam::imu_window", mutates_args=())
+def _imu_window_op(ins: list[torch.Tensor], eps_mass: float,
+                   eps_psd: float) -> torch.Tensor:
+    # Leading axes (every operand the same) come from the batching rule.
+    if ins[0].device.type == "cpu":
+        fn = functools.partial(imu_ops.imu_window_plain, eps_mass=eps_mass,
+                               eps_psd=eps_psd)
+        for _ in range(ins[0].dim() - 1):
+            fn = torch.func.vmap(fn)
+        return fn(*ins)
+    return _imu_window_launch(ins, eps_mass, eps_psd)
+
+
+@torch.library.register_vmap("fl_slam::imu_window")
+def _imu_window_vmap(info, in_dims, ins, eps_mass, eps_psd):
+    # Back through the op: an outer vmap's rule then adds its own axis.
+    return _imu_window_op([instance_first(info.batch_size, t, d)
+                           for t, d in zip(ins, in_dims[0])], eps_mass,
+                          eps_psd), 0
+
+
+def imu_window_packed(stamps, gyro, accel, prev_scan_t, scan_start,
+                      scan_end, sigma_dt, gyro_bias, accel_bias, gravity_w,
+                      R_prev, *, eps_mass: float, eps_psd: float):
+    """K12: the IMU window of one scan (``ops.imu.imu_window_plain``'s
+    operands, 2 <= M <= ``IMU_WINDOW_MAX_M`` samples) in one launch on CUDA
+    tensors, one for all windows under ``torch.func.vmap``; the plain twin
+    on CPU tensors. Returns the packed row (``ops.imu.IMU_WINDOW_HEADER``,
+    then w_int)."""
+    ins = (stamps, gyro, accel, prev_scan_t, scan_start, scan_end, sigma_dt,
+           gyro_bias, accel_bias, gravity_w, R_prev)
+    dev, dt = stamps.device, stamps.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"imu_window: dtype {dt}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"imu_window: unsupported device {dev}")
+    if stamps.dim() != 1 or not 2 <= stamps.shape[0] <= IMU_WINDOW_MAX_M:
+        raise ValueError(f"imu_window: stamps have shape "
+                         f"{tuple(stamps.shape)}, expected (M,) with 2 <= M "
+                         f"<= {IMU_WINDOW_MAX_M}")
+    _check("imu_window", ins, _iw_shapes(stamps.shape[0]), dt, dev)
+    return _imu_window_op(list(ins), float(eps_mass), float(eps_psd))
+
+
+def imu_window(*ins, eps_mass: float, eps_psd: float) -> dict:
+    """``imu_window_packed``'s row as ``ops.imu.imu_window_views``."""
+    return imu_ops.imu_window_views(
+        imu_window_packed(*ins, eps_mass=eps_mass, eps_psd=eps_psd),
+        ins[0].shape[0])

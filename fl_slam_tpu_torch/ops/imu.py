@@ -9,6 +9,8 @@ at the tail (zero stamp = invalid sample).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from fl_slam_tpu_torch.config import IDX_BA, IDX_ROT, IDX_TRANS, IDX_VEL
@@ -216,14 +218,18 @@ def accel_moments(accel, weights, accel_bias, eps_mass: float):
 def gravity_vmf_evidence(rotvec_wb, accel, gyro, weights, accel_bias,
                          gravity_w, dt_imu, *, eps_psd: float,
                          eps_mass: float, eps_r: float, blend_r0: float,
-                         blend_tau: float):
+                         blend_tau: float, resultant=None):
     """vMF gravity-direction factor on the rotation block (h = +g_rot, the
-    reference's sign fix). Returns (L22, h22, certs)."""
+    reference's sign fix). ``resultant``: ``gravity_resultant``'s dict of
+    these operands where the caller has it (K12's), else computed here.
+    Returns (L22, h22, certs)."""
     R0 = se3.so3_exp(rotvec_wb)
     g_hat = gravity_w / (torch.linalg.norm(gravity_w) + eps_mass)
     mu0 = R0.T @ (-g_hat)
-    res = gravity_resultant(accel, gyro, weights, accel_bias, dt_imu,
-                            eps_mass)
+    res = resultant
+    if res is None:
+        res = gravity_resultant(accel, gyro, weights, accel_bias, dt_imu,
+                                eps_mass)
     xbar, rbar = res["xbar"], res["rbar"]
     kappa, kappa_clamp = kappa_from_resultant(rbar, eps_r, blend_r0,
                                               blend_tau)
@@ -355,3 +361,75 @@ def accel_iw_suffstats(rotvec_wb, accel, weights, accel_bias, gravity_w,
 def weighted_mean_rate(gyro, weights, gyro_bias, eps_mass: float):
     w = weights / (torch.sum(weights) + eps_mass)
     return torch.einsum("m,mi->i", w, gyro - gyro_bias)
+
+
+# K12's packed row (``belief_kernels.imu_window``, ``csrc/imu_window.cu``):
+# these entries in this order, then w_int (M,). Each preintegration gives
+# ``_PRE``; its delta_p is delta_pose[:3].
+_PRE = (("delta_pose", (6,)), ("delta_v", (3,)), ("ess", ()),
+        ("a_body_mean", (3,)), ("dt_eff_sum", ()))
+IMU_WINDOW_HEADER = (
+    ("sigma_warp", ()), ("dt_int", ()), ("dt_imu", ()), ("cover", ()),
+    *[("scan." + k, s) for k, s in _PRE], *[("int." + k, s) for k, s in _PRE],
+    ("motion.delta_rotvec", (3,)), ("motion.delta_p_body", (3,)),
+    ("motion.delta_v_body", (3,)), ("omega_avg", (3,)), ("dpsi_gyro", (3, 3)),
+    ("grav.xbar", (3,)), ("grav.rbar", ()), ("grav.ess_w", ()),
+    ("grav.ess_raw", ()), ("grav.transport_sigma", ()), ("grav.rel_mean", ()),
+    ("acc.M2", (3, 3)), ("acc.m1", (3,)), ("acc.sw", ()))
+IMU_WINDOW_HEADER_LEN = sum(math.prod(s) for _, s in IMU_WINDOW_HEADER)
+
+
+def imu_window_plain(stamps, gyro, accel, prev_scan_t, scan_start, scan_end,
+                     sigma_dt, gyro_bias, accel_bias, gravity_w, R_prev,
+                     eps_mass: float, eps_psd: float):
+    """Everything that reduces over one scan's IMU window, as the eager
+    chain: the soft windows (the warp from the dt variance ``sigma_dt``),
+    both preintegrations from ``R_prev``, the integration time, the mean
+    sample period, the mean rate, the gyro suffstats, the coverage scale
+    and the MotionDelta, the gravity resultant and the accel moments. K12's
+    plain twin; returns the packed row (``IMU_WINDOW_HEADER``, then
+    w_int)."""
+    dt_std = torch.sqrt(torch.clamp(sigma_dt, min=0.0))
+    sigma_warp = torch.clamp(dt_std, 0.01, 0.05)
+    imu_valid = (stamps > 0.0).to(stamps.dtype)
+    w_int = smooth_window_weights(
+        stamps, prev_scan_t, scan_start, sigma_warp) * imu_valid
+    wm_scan, dtv_scan = window_interval_weights(
+        stamps, scan_start, scan_end, sigma_warp)
+    wm_int, dtv_int = window_interval_weights(
+        stamps, prev_scan_t, scan_start, sigma_warp)
+    pre_scan = preintegrate(stamps, gyro, accel, wm_scan, gyro_bias,
+                            accel_bias, gravity_w, R_prev, dtv_scan)
+    pre_int = preintegrate(stamps, gyro, accel, wm_int, gyro_bias,
+                           accel_bias, gravity_w, R_prev, dtv_int)
+    dt_int = integration_time(stamps, prev_scan_t, scan_start)
+    dt_imu = mean_sample_period(stamps)
+    omega_avg = weighted_mean_rate(gyro, w_int, gyro_bias, eps_mass)
+    cover = torch.clamp(dt_int / torch.clamp(pre_int["dt_eff_sum"],
+                                             min=eps_mass), 1.0, 2.0)
+    dpsi_gyro = gyro_iw_suffstats(gyro, w_int, gyro_bias, omega_avg, dt_imu,
+                                  eps_mass=eps_mass, eps_psd=eps_psd)
+    grav = gravity_resultant(accel, gyro, w_int, accel_bias, dt_imu,
+                             eps_mass)
+    acc_M2, acc_m1, acc_sw = accel_moments(accel, w_int, accel_bias,
+                                           eps_mass)
+    parts = [sigma_warp, dt_int, dt_imu, cover]
+    for pre in (pre_scan, pre_int):
+        parts += [pre[k] for k, _ in _PRE]
+    parts += [pre_int["delta_pose"][3:6] * cover,
+              pre_int["delta_p"] * cover * cover, pre_int["delta_v"] * cover,
+              omega_avg, dpsi_gyro, grav["xbar"], grav["rbar"],
+              grav["ess_w"], grav["ess_raw"], grav["transport_sigma"],
+              grav["rel_mean"], acc_M2, acc_m1, acc_sw, w_int]
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
+def imu_window_views(row, M: int) -> dict:
+    """The entries of K12's packed row by name (views), ``w_int`` last."""
+    out, o = {}, 0
+    for name, shape in IMU_WINDOW_HEADER:
+        k = math.prod(shape)
+        out[name] = row[o:o + k].view(shape)
+        o += k
+    out["w_int"] = row[o:o + M]
+    return out

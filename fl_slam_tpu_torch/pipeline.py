@@ -361,8 +361,8 @@ def make_step(cfg: GCConfig, device=None):
 
 def _predict_and_evidence(bel_prev, mu_prev, sigma_prev, *, scan, cfg, Q,
                           dt_sec, motion, sigma_g, sigma_a, dt_int, dt_imu,
-                          w_int, accel_bias, gravity_w, omega_avg, pre_int,
-                          odom_prev6, first_scan):
+                          w_int, accel_bias, gravity_w, omega_avg,
+                          a_body_mean, grav, odom_prev6, first_scan):
     """Steps 2 + 6 for one hypothesis: mechanized predict and the IMU /
     odometry evidence at the prediction; returns the linearization point."""
     k_certs: dict = {}
@@ -406,7 +406,7 @@ def _predict_and_evidence(bel_prev, mu_prev, sigma_prev, *, scan, cfg, Q,
         pose_pred[3:6], scan.imu_accel, scan.imu_gyro, w_int, accel_bias,
         gravity_w, dt_imu, eps_psd=cfg.eps_psd, eps_mass=cfg.eps_mass,
         eps_r=cfg.eps_r, blend_r0=cfg.kappa_blend_r0,
-        blend_tau=cfg.kappa_blend_tau)
+        blend_tau=cfg.kappa_blend_tau, resultant=grav)
     s_dep = imu_ops.dependence_inflation_scale(c["imu_grav.transport_sigma"],
                                                cfg.eps_mass)
     L_io, h_io = L_io + s_dep * Lg, h_io + s_dep * hg
@@ -429,7 +429,7 @@ def _predict_and_evidence(bel_prev, mu_prev, sigma_prev, *, scan, cfg, Q,
     a_body_exp = torch.linalg.cross(scan.odom_omega_body, scan.odom_vel_body,
                                     dim=-1)
     Lb, hb, c = imu_ops.accel_bias_evidence(
-        pre_int["a_body_mean"], pose_pred[3:6], gravity_w,
+        a_body_mean, pose_pred[3:6], gravity_w,
         cfg.accel_bias_sigma, a_body_exp, cfg.ba_perp_scale)
     L_io, h_io = L_io + Lb, h_io + hb
     k_certs.update(c)
@@ -646,54 +646,39 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
     gravity_w = const(GRAVITY_W, ref) * cfg.imu_gravity_scale
 
     # ---- steps 3-4: soft IMU windows + preintegration -----------------------
+    # K12: both windows, both preintegrations and every reduction over the
+    # IMU window (the gravity resultant and the accel moments too) in one
+    # launch.
     mu_prev0 = state.mu[0]
     gyro_bias = mu_prev0[IDX_BG]
     accel_bias = mu_prev0[IDX_BA]
-    dt_std = torch.sqrt(torch.clamp(state.Sigma[0, IDX_DT.start,
-                                                IDX_DT.start], min=0.0))
-    sigma_warp = torch.clamp(dt_std, 0.01, 0.05)
-    stamps = scan.imu_stamps
-    imu_valid = (stamps > 0.0).to(dt)
-    w_int = imu_ops.smooth_window_weights(
-        stamps, state.prev_scan_t, scan.scan_start, sigma_warp) * imu_valid
-    wm_scan, dtv_scan = imu_ops.window_interval_weights(
-        stamps, scan.scan_start, scan.scan_end, sigma_warp)
-    wm_int, dtv_int = imu_ops.window_interval_weights(
-        stamps, state.prev_scan_t, scan.scan_start, sigma_warp)
-    pre_scan = imu_ops.preintegrate(stamps, scan.imu_gyro, scan.imu_accel,
-                                    wm_scan, gyro_bias, accel_bias,
-                                    gravity_w, state.R_prev, dtv_scan)
-    pre_int = imu_ops.preintegrate(stamps, scan.imu_gyro, scan.imu_accel,
-                                   wm_int, gyro_bias, accel_bias, gravity_w,
-                                   state.R_prev, dtv_int)
-    dt_int = imu_ops.integration_time(stamps, state.prev_scan_t,
-                                      scan.scan_start)
-    dt_imu = imu_ops.mean_sample_period(stamps)
-    omega_avg = imu_ops.weighted_mean_rate(scan.imu_gyro, w_int, gyro_bias,
-                                           cfg.eps_mass)
-    certs["imu.ess_scan"] = pre_scan["ess"]
-    certs["imu.ess_int"] = pre_int["ess"]
+    iw = belief_kernels.imu_window(
+        scan.imu_stamps, scan.imu_gyro, scan.imu_accel, state.prev_scan_t,
+        scan.scan_start, scan.scan_end,
+        state.Sigma[0, IDX_DT.start, IDX_DT.start], gyro_bias, accel_bias,
+        gravity_w, state.R_prev, eps_mass=cfg.eps_mass, eps_psd=cfg.eps_psd)
+    w_int, ess_int = iw["w_int"], iw["int.ess"]
+    dt_int, dt_imu, omega_avg = iw["dt_int"], iw["dt_imu"], iw["omega_avg"]
+    certs["imu.ess_scan"] = iw["scan.ess"]
+    certs["imu.ess_int"] = ess_int
     certs["imu.dt_int"] = dt_int
-    cover = torch.clamp(dt_int / torch.clamp(pre_int["dt_eff_sum"],
-                                             min=cfg.eps_mass), 1.0, 2.0)
     motion = predict_ops.MotionDelta(
-        delta_rotvec=pre_int["delta_pose"][3:6] * cover,
-        delta_p_body=pre_int["delta_p"] * cover * cover,
-        delta_v_body=pre_int["delta_v"] * cover)
-    certs["predict.window_coverage_scale"] = cover
+        delta_rotvec=iw["motion.delta_rotvec"],
+        delta_p_body=iw["motion.delta_p_body"],
+        delta_v_body=iw["motion.delta_v_body"])
+    certs["predict.window_coverage_scale"] = iw["cover"]
+    grav = {k[5:]: v for k, v in iw.items() if k.startswith("grav.")}
 
     Q = noise_ops.process_noise_to_Q(state.process_noise, cfg.eps_psd, cfg)
     sigma_g = noise_ops.measurement_noise_mean(state.meas_noise, 0,
                                                cfg.eps_psd)
     sigma_a = noise_ops.measurement_noise_mean(state.meas_noise, 1,
                                                cfg.eps_psd)
-    dpsi_gyro = imu_ops.gyro_iw_suffstats(
-        scan.imu_gyro, w_int, gyro_bias, omega_avg, dt_imu,
-        eps_mass=cfg.eps_mass, eps_psd=cfg.eps_psd)
+    dpsi_gyro = iw["dpsi_gyro"]
 
     # ---- step 5: deskew -------------------------------------------------------
     lap("scan.deskew")
-    xi_body = pre_scan["delta_pose"]
+    xi_body = iw["scan.delta_pose"]
     xi_body = torch.cat([xi_body[:3] * (0.0 if cfg.deskew_rotation_only
                                         else 1.0), xi_body[3:]])
     points_dsk, w_dsk, c = deskew_ops.deskew_constant_twist(
@@ -709,26 +694,22 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
     if kernels:
         bel_prev0 = Belief(L=state.belief.L[0], h=state.belief.h[0],
                            anchor=state.belief.anchor[0])
-        # K1: the whole per-pose chain in one kernel; the reductions over
-        # the IMU window stay outside (the resultant's masked median, the
-        # accel moments). K1 takes the previous rotation from R_prev.
-        grav = imu_ops.gravity_resultant(scan.imu_accel, scan.imu_gyro,
-                                         w_int, accel_bias, dt_imu,
-                                         cfg.eps_mass)
-        acc_M2, acc_m1, acc_sw = imu_ops.accel_moments(
-            scan.imu_accel, w_int, accel_bias, cfg.eps_mass)
+        # K1: the whole per-pose chain in one kernel, on K12's reductions
+        # over the IMU window (the resultant, the accel moments). K1 takes
+        # the previous rotation from R_prev.
+        acc_M2, acc_m1, acc_sw = iw["acc.M2"], iw["acc.m1"], iw["acc.sw"]
         (L_pred, h_pred, mu_pred, L_io, h_io, z_lin, dz_odom, z_lin_pose,
          dpsi_accel, pe_certs, R_zlin) = belief_kernels.predict_evidence(
             cfg, bel_prev0.L, bel_prev0.h, bel_prev0.anchor, mu_prev0,
             state.Sigma[0], state.R_prev, Q, sigma_g, sigma_a, scan.odom_cov,
-            acc_M2, dt_sec=dt_sec, pre_ess=pre_int["ess"], dt_int=dt_int,
+            acc_M2, dt_sec=dt_sec, pre_ess=ess_int, dt_int=dt_int,
             dt_imu=dt_imu, grav_rbar=grav["rbar"],
             transport_sigma=grav["transport_sigma"],
             pose_prev=torch.cat([state.pose_prev7[0:3],
                                  torch.zeros_like(state.pose_prev7[0:3])]),
             motion_rot=motion.delta_rotvec, motion_p=motion.delta_p_body,
             motion_v=motion.delta_v_body, omega_avg=omega_avg,
-            a_body_mean=pre_int["a_body_mean"], odom_vel=scan.odom_vel_body,
+            a_body_mean=iw["int.a_body_mean"], odom_vel=scan.odom_vel_body,
             odom_omega=scan.odom_omega_body, odom_pose=scan.odom_pose,
             grav_xbar=grav["xbar"], acc_m1=acc_m1, acc_sw=acc_sw,
             odom_rel=se3.se3_minus(scan.odom_pose, state.odom_prev6),
@@ -746,7 +727,8 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
             _predict_and_evidence, scan=scan, cfg=cfg, Q=Q, dt_sec=dt_sec,
             motion=motion, sigma_g=sigma_g, sigma_a=sigma_a, dt_int=dt_int,
             dt_imu=dt_imu, w_int=w_int, accel_bias=accel_bias,
-            gravity_w=gravity_w, omega_avg=omega_avg, pre_int=pre_int,
+            gravity_w=gravity_w, omega_avg=omega_avg,
+            a_body_mean=iw["int.a_body_mean"], grav=grav,
             odom_prev6=state.odom_prev6, first_scan=first_scan)
         with tracing.vmap_fallbacks():
             bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k, dz_odom_k, kc = \
@@ -807,7 +789,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
             z_lin, L_vis, h_vis_rel, dz_odom[IDX_POSE],
             state.process_noise.nu, state.process_noise.psi,
             state.meas_noise.nu, state.meas_noise.psi, dpsi_gyro, dpsi_accel,
-            dpsi_lidar, pre_int["ess"], certs["ot.ess"],
+            dpsi_lidar, ess_int, certs["ot.ess"],
             certs["ot.total_cost"], pe_certs[_PE_GRAV_PROJ], cond_p6)
         certs["fusion.cond_pose6"] = cond_p6
         certs["__packed__:tail"] = tail_certs
@@ -821,7 +803,7 @@ def _scan_core(state: PipelineState, ctx: ViewCtx, scan: ScanInput,
          Sigma_next, pose_prev7_next, kc) = _bank_tail(
             state, cfg, bel_pred_k, mu_pred_k, L_io_k, h_io_k, z_lin_k,
             dz_odom, kc["odom_pose.nll_proxy"], L_vis, h_vis_rel, dpsi_gyro,
-            dpsi_accel, dpsi_lidar, ess_imu=pre_int["ess"],
+            dpsi_accel, dpsi_lidar, ess_imu=ess_int,
             ot_ess=certs["ot.ess"], ot_cost=certs["ot.total_cost"],
             grav_proj=certs["imu_grav.psd_projection"])
         certs.update(kc)

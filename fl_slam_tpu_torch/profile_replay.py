@@ -63,6 +63,8 @@ KERNEL_COUNTERS = {
                            ("assoc_kernels", "select_candidates_batched", 1)),
     "pose6_cond_kernel": (("belief_kernels", "pose6_cond", 1),
                           ("belief_kernels", "pose6_cond_batched", 1)),
+    "imu_window_kernel": (("belief_kernels", "imu_window", 1),
+                          ("belief_kernels", "imu_window_batched", 1)),
 }
 OWN_KERNELS = tuple(KERNEL_COUNTERS)
 

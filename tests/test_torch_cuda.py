@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 predict + evidence, K2 scalar tail, K3
 Sinkhorn, K4 moment segment-sum, K5 slab exchange, K6 page IO, K8 splat
 compositing, K9 candidate selection, K10 the row-major exchange, K11 the
-pose block's conditioning) against
+pose block's conditioning, K12 the IMU window) against
 their plain versions, in f32 and f64, on a CUDA device, and their
 instance-batched launches (K7, batched K9) against the one-instance ones;
 and the bag staging's upload to the card (pinned double buffers, one copy
@@ -22,7 +22,8 @@ from fl_slam_tpu_torch.config import GCConfig
 from fl_slam_tpu_torch.core import se3
 from fl_slam_tpu_torch.ops import assoc_kernels, belief_kernels, surfel_kernels
 from fl_slam_tpu_torch.ops import noise as noise_ops
-from fl_slam_tpu_torch.ops import pose6_cases
+from fl_slam_tpu_torch.ops import imu as imu_ops
+from fl_slam_tpu_torch.ops import imu_window_cases, pose6_cases
 from fl_slam_tpu_torch.render.splat_cases import (BIN_EDGE_CASES,
                                                   bin_edge_table)
 from fl_slam_tpu_torch.structures import atlas_kernels, exchange_cases
@@ -305,6 +306,112 @@ def test_belief_kernels_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError, match="operand 17"):
         belief_kernels.scalar_tail_packed(
             GCConfig.tpu(), *[t.to(cuda) for t in ops[:17]], ops[17])
+
+
+# ---------------------------------------------------------------------------
+# K12, the IMU window, against its plain twin on the card (tolerances:
+# fl_slam_tpu_torch/ops/imu_window_cases.py).
+# ---------------------------------------------------------------------------
+
+IW_EPS = dict(eps_mass=imu_window_cases.EPS_MASS,
+              eps_psd=imu_window_cases.EPS_PSD)
+
+
+def _iw(ins):
+    return belief_kernels.imu_window_packed(*ins, **IW_EPS)
+
+
+def _iw_held(ops64, dtype, dev):
+    """K12 on ``ops64`` (f64, CPU) in ``dtype``: one launch a call, a
+    rerun bit for bit, every entry within its tolerance of the twin's."""
+    ins = [t.to(dev, dtype) for t in ops64]
+    before = belief_kernels.launches["imu_window"]
+    row, again = _iw(ins), _iw(ins)
+    assert belief_kernels.launches["imu_window"] == before + 2
+    assert torch.equal(row, again)
+    twin = imu_ops.imu_window_plain(*ins, **IW_EPS)
+    f32 = [t.to(dev, torch.float32) for t in ops64]
+    twin32 = imu_ops.imu_window_plain(*f32, **IW_EPS)
+    twin64 = imu_ops.imu_window_plain(*[t.double() for t in f32], **IW_EPS)
+    res = imu_window_cases.held(row, twin, twin32, twin64, dtype)
+    assert res["ok"], res
+    return row
+
+
+@pytest.fixture(scope="module")
+def iw_captured():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return {"tpu": imu_window_cases.captured(GCConfig.tpu()),
+            "parity": imu_window_cases.captured(GCConfig())}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ("synthetic",) + imu_window_cases.EDGE_CASES)
+def test_imu_window_kernel_matches_plain(cuda, dtype, case):
+    ops = (imu_window_cases.operands(3) if case == "synthetic"
+           else imu_window_cases.edge(case, 3))
+    _iw_held(ops, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M,n_valid", [(2, 2), (20, 20), (100, 70),
+                                       (600, 550), (1024, 1024)])
+def test_imu_window_kernel_matches_plain_at_other_lengths(cuda, dtype, M,
+                                                          n_valid):
+    """Windows the presets do not use: chunks shorter than 32 samples
+    (M = 2, 20), a ragged last chunk (M = 100), and two samples a thread
+    past 512 (M = 600, 1024)."""
+    _iw_held(imu_window_cases.operands(5, M=M, n_valid=n_valid), dtype,
+             cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("config", ["tpu", "parity"])
+def test_imu_window_kernel_matches_plain_on_captured_operands(
+        cuda, iw_captured, dtype, config):
+    """The operands ``GCConfig.tpu()``'s and ``GCConfig()``'s replays hand
+    K12 (the last scan of 12)."""
+    _iw_held(iw_captured[config], dtype, cuda)
+
+
+def _iw_sets(n):
+    cases = imu_window_cases.EDGE_CASES[:-1]          # M = 512 each
+    return [imu_window_cases.operands(s) if s % 2 else
+            imu_window_cases.edge(cases[s // 2 % len(cases)], s)
+            for s in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("how", ["instances8", "bank4", "nested2x4"])
+def test_batched_imu_window_is_the_single_kernel_per_window(cuda, dtype,
+                                                            how):
+    """Under ``vmap`` one launch serves every window, and each is its
+    one-window launch bit for bit: 8 stacked windows (the instances), 4
+    with the window and gravity shared (the bank's operands), and 2 x 4
+    nested; a rerun is bit for bit."""
+    n = 4 if how == "bank4" else 8
+    vmap = torch.func.vmap
+    stacked = [torch.stack(ts).to(cuda, dtype) for ts in zip(*_iw_sets(n))]
+    dims = [0] * len(stacked)
+    if how == "bank4":
+        dims = [None, None, None, 0, 0, 0, 0, 0, 0, None, 0]
+    ins = [t[0] if d is None else t for t, d in zip(stacked, dims)]
+    if how == "nested2x4":
+        fn = vmap(vmap(lambda *a: _iw(a)))
+        ins = [t.reshape(2, 4, *t.shape[1:]) for t in ins]
+    else:
+        fn = vmap(lambda *a: _iw(a), in_dims=tuple(dims))
+    before = dict(belief_kernels.launches)
+    rows, again = fn(*ins), fn(*ins)
+    assert belief_kernels.launches["imu_window_batched"] == \
+        before["imu_window_batched"] + 2
+    assert belief_kernels.launches["imu_window"] == before["imu_window"]
+    assert torch.equal(rows, again)
+    rows = rows.reshape(n, -1)
+    for b in range(n):
+        one = [t[0] if d is None else t[b] for t, d in zip(stacked, dims)]
+        assert torch.equal(rows[b], _iw(one)), b
 
 
 # ---------------------------------------------------------------------------

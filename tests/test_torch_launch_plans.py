@@ -28,6 +28,8 @@ from fl_slam_tpu_torch.core.linalg import jacobi_rounds
 from fl_slam_tpu_torch.ops import (assoc_kernels, belief_kernels,
                                    surfel_kernels)
 from fl_slam_tpu_torch.ops import fusion as fusion_ops
+from fl_slam_tpu_torch.ops import imu as imu_ops
+from fl_slam_tpu_torch.ops import imu_window_cases
 from fl_slam_tpu_torch.parallel import replicas
 from fl_slam_tpu_torch.structures import atlas_kernels
 
@@ -580,6 +582,263 @@ def test_pose6_kernel_sorting_network_sorts_every_input():
             if d[a] > d[b]:
                 d[a], d[b] = d[b], d[a]
         assert d == sorted(d), bits
+
+
+# -- K12: the IMU window, one op for one window or B ---------------------
+
+_EPS = dict(eps_mass=imu_window_cases.EPS_MASS,
+            eps_psd=imu_window_cases.EPS_PSD)
+
+
+def _iw_operands(seed, dtype=torch.float64, M=512):
+    return [t.to(dtype) for t in imu_window_cases.operands(seed, M=M)]
+
+
+def _chain(stamps, gyro, accel, prev_t, start, end, sig_dt, gb, ab, grav, R):
+    """The IMU window as ``pipeline._scan_core`` ran it before K12, function
+    by function; {entry of the packed row: value}."""
+    eps_mass, eps_psd = _EPS["eps_mass"], _EPS["eps_psd"]
+    dt_std = torch.sqrt(torch.clamp(sig_dt, min=0.0))
+    sigma_warp = torch.clamp(dt_std, 0.01, 0.05)
+    imu_valid = (stamps > 0.0).to(stamps.dtype)
+    w_int = imu_ops.smooth_window_weights(
+        stamps, prev_t, start, sigma_warp) * imu_valid
+    wm_scan, dtv_scan = imu_ops.window_interval_weights(
+        stamps, start, end, sigma_warp)
+    wm_int, dtv_int = imu_ops.window_interval_weights(
+        stamps, prev_t, start, sigma_warp)
+    pre = {"scan": imu_ops.preintegrate(stamps, gyro, accel, wm_scan, gb, ab,
+                                        grav, R, dtv_scan),
+           "int": imu_ops.preintegrate(stamps, gyro, accel, wm_int, gb, ab,
+                                       grav, R, dtv_int)}
+    dt_int = imu_ops.integration_time(stamps, prev_t, start)
+    dt_imu = imu_ops.mean_sample_period(stamps)
+    omega_avg = imu_ops.weighted_mean_rate(gyro, w_int, gb, eps_mass)
+    cover = torch.clamp(dt_int / torch.clamp(pre["int"]["dt_eff_sum"],
+                                             min=eps_mass), 1.0, 2.0)
+    g = imu_ops.gravity_resultant(accel, gyro, w_int, ab, dt_imu, eps_mass)
+    M2, m1, sw = imu_ops.accel_moments(accel, w_int, ab, eps_mass)
+    out = {"sigma_warp": sigma_warp, "dt_int": dt_int, "dt_imu": dt_imu,
+           "cover": cover,
+           "motion.delta_rotvec": pre["int"]["delta_pose"][3:6] * cover,
+           "motion.delta_p_body": pre["int"]["delta_p"] * cover * cover,
+           "motion.delta_v_body": pre["int"]["delta_v"] * cover,
+           "omega_avg": omega_avg,
+           "dpsi_gyro": imu_ops.gyro_iw_suffstats(
+               gyro, w_int, gb, omega_avg, dt_imu, eps_mass=eps_mass,
+               eps_psd=eps_psd),
+           "acc.M2": M2, "acc.m1": m1, "acc.sw": sw, "w_int": w_int}
+    for w in ("scan", "int"):
+        for k in ("delta_pose", "delta_v", "ess", "a_body_mean",
+                  "dt_eff_sum"):
+            out[f"{w}.{k}"] = pre[w][k]
+    for k in ("xbar", "rbar", "ess_w", "ess_raw", "transport_sigma",
+              "rel_mean"):
+        out[f"grav.{k}"] = g[k]
+    return out
+
+
+def _op(*ins):
+    return belief_kernels.imu_window(*ins, **_EPS)
+
+
+_SHARED = (None, None, None, 0, 0, 0, 0, 0, 0, None, 0)   # the bank's view
+
+
+@pytest.mark.parametrize("how", ["one", "float32", "m64", "vmap",
+                                 "vmap_shared", "vmap_dim1", "nested"])
+def test_imu_window_op_on_the_cpu_is_the_plain_chain(how):
+    """On the CPU, K12's op (``belief_kernels.imu_window``) runs the chain
+    it replaced bit for bit, entry by entry: alone (f64, f32, M = 64),
+    under ``vmap`` with every operand batched, with the window and gravity
+    shared, with the instance axis second, and nested."""
+    vmap = torch.func.vmap
+    before = dict(belief_kernels.launches)
+    if how in ("one", "float32", "m64"):
+        dt = torch.float32 if how == "float32" else torch.float64
+        ins = _iw_operands(1, dt, M=64 if how == "m64" else 512)
+        got, want = _op(*ins), _chain(*ins)
+    else:
+        sets = [_iw_operands(s) for s in range(2, 6)]
+        ins = [torch.stack(ts) for ts in zip(*sets)]
+        dims = 0
+        if how == "vmap_shared":
+            dims = _SHARED
+            ins = [t[0] if d is None else t for t, d in zip(ins, dims)]
+        elif how == "vmap_dim1":
+            dims = tuple(1 if t.dim() > 1 else 0 for t in ins)
+            ins = [t.movedim(0, 1) if d else t for t, d in zip(ins, dims)]
+        elif how == "nested":
+            ins = [t.reshape(2, 2, *t.shape[1:]) for t in ins]
+        if how == "nested":
+            got, want = vmap(vmap(_op))(*ins), vmap(vmap(_chain))(*ins)
+        else:
+            got = vmap(_op, in_dims=dims)(*ins)
+            want = vmap(_chain, in_dims=dims)(*ins)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    assert belief_kernels.launches == before           # nothing launched
+
+
+def _iw_bad(k, t):
+    ins = _iw_operands(7)
+    ins[k] = t
+    return ins
+
+
+@pytest.mark.parametrize("ins,match", [
+    (_iw_bad(0, torch.zeros(512, dtype=torch.int32)), "dtype"),
+    (_iw_bad(0, torch.zeros(512, dtype=torch.float16)), "dtype"),
+    (_iw_bad(1, torch.zeros(512, 3, dtype=torch.float32)), "operand 1"),
+    (_iw_bad(0, torch.zeros(512, 1, dtype=torch.float64)), "shape"),
+    (_iw_bad(0, torch.ones(1, dtype=torch.float64)), "shape"),
+    (_iw_bad(0, torch.ones(1025, dtype=torch.float64)), "shape"),
+    (_iw_bad(2, torch.zeros(512, 4, dtype=torch.float64)), "operand 2"),
+    (_iw_bad(10, torch.eye(4, dtype=torch.float64)), "operand 10"),
+    (_iw_bad(3, torch.zeros(1, dtype=torch.float64)), "operand 3"),
+    ([t.to("meta") for t in _iw_operands(7)], "device")])
+def test_imu_window_op_refuses_what_the_kernel_does_not_take(ins, match):
+    with pytest.raises(ValueError, match=match):
+        _op(*ins)
+
+
+def test_imu_window_kernel_writes_the_twins_packed_row():
+    """K12's output offsets (``constexpr int k...`` in its source) are the
+    positions of the twin's entries, and its largest window is the
+    wrapper's."""
+    src = (cuda_build.CSRC / "imu_window.cu").read_text()
+    const = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int k(\w+) = (\d+);", src)}
+    where = {name: sl.start for name, sl in imu_window_cases.entries(1)}
+    names = {"SigmaWarp": "sigma_warp", "DtInt": "dt_int",
+             "DtImu": "dt_imu", "Cover": "cover",
+             "PreScan": "scan.delta_pose[:3]",
+             "PreInt": "int.delta_pose[:3]",
+             "Motion": "motion.delta_rotvec", "OmegaAvg": "omega_avg",
+             "DpsiGyro": "dpsi_gyro", "GravXbar": "grav.xbar",
+             "GravRbar": "grav.rbar", "GravEssW": "grav.ess_w",
+             "GravEssRaw": "grav.ess_raw", "GravSigma": "grav.transport_sigma",
+             "GravRelMean": "grav.rel_mean", "AccM2": "acc.M2",
+             "AccM1": "acc.m1", "AccSw": "acc.sw", "Header": "w_int"}
+    for k, name in names.items():
+        assert const[k] == where[name], k
+    assert const["Header"] == imu_ops.IMU_WINDOW_HEADER_LEN == 74
+    assert const["PreInt"] - const["PreScan"] == 14
+    assert "kMaxM = kMaxThreads * kMaxItems" in src
+    assert const["MaxThreads"] * const["MaxItems"] == \
+        belief_kernels.IMU_WINDOW_MAX_M
+
+
+@pytest.mark.parametrize("case", ("synthetic",)
+                         + imu_window_cases.EDGE_CASES)
+def test_imu_window_tolerance_holds_the_twin_and_refuses_a_fault(case):
+    """``imu_window_cases.held``, the card's yardstick for K12: the twin
+    passes against itself in f32 and f64; a row with one entry moved (a
+    weight by 1e-3, a rotation by 1e-4 rad) or one NaN fails."""
+    ops = (imu_window_cases.operands(3) if case == "synthetic"
+           else imu_window_cases.edge(case, 3))
+    f32 = [t.float() for t in ops]
+    t32 = imu_ops.imu_window_plain(*f32, **_EPS)
+    t64 = imu_ops.imu_window_plain(*[t.double() for t in f32], **_EPS)
+    for dt, twin in ((torch.float32, t32), (torch.float64, t64)):
+        res = imu_window_cases.held(twin, twin, t32, t64, dt)
+        assert res["ok"] and res["worst_share"] == 0.0, res
+        where = dict(imu_window_cases.entries(twin.shape[0] - 74))
+        for name, d in (("w_int", 1e-3), ("int.delta_pose[3:]", 1e-4),
+                        ("grav.rbar", math.nan)):
+            bad = twin.clone()
+            bad[where[name].start] += d
+            res = imu_window_cases.held(bad, twin, t32, t64, dt)
+            assert not res["ok"] and res["worst_entry"] == name, (name, res)
+
+
+def test_imu_window_capture_hands_back_what_the_scan_gave_k12():
+    """``imu_window_cases.captured`` (the card's captured operands) on a
+    short CPU replay: the 11 operands of the last scan's K12 call, in f64,
+    of the twin's shapes, the last scan's window among them."""
+    from fl_slam_tpu_torch.config import GCConfig
+    from fl_slam_tpu_torch.io.synthetic import simulate, to_scan_inputs
+    cfg = GCConfig.small()
+    ops = imu_window_cases.captured(cfg, n_scans=3, device="cpu")
+    M = cfg.imu_len
+    assert [tuple(t.shape) for t in ops] == \
+        list(belief_kernels._iw_shapes(M))
+    assert all(t.dtype == torch.float64 for t in ops)
+    ds = simulate(cfg, n_scans=3, seed=4, odom_drift_vel_scale=1.03,
+                  odom_drift_yaw_rate=0.01)
+    scans = to_scan_inputs(ds, cfg, device="cpu")
+    assert torch.equal(ops[0], scans.imu_stamps[-1].double())
+    assert torch.equal(ops[4], scans.scan_start[-1].double())
+    assert bool(torch.isfinite(imu_ops.imu_window_plain(*ops, **_EPS)).all())
+
+
+class _EmulatedLib:
+    """K12's entry point emulated on the CPU through the raw pointers and
+    instance strides it is given: per window, the operands read where the
+    kernel reads them, the twin run on them, its row written where the
+    kernel writes it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def imu_window_f64(self, *args):
+        ptrs, (out, B, M, eps_mass, eps_psd) = args[:22], args[22:]
+        self.calls.append(B)
+        L = imu_ops.IMU_WINDOW_HEADER_LEN + M
+        for b in range(B):
+            ops = []
+            for k, shape in enumerate(belief_kernels._iw_shapes(M)):
+                n = math.prod(shape)
+                buf = (ctypes.c_double * n).from_address(
+                    ptrs[2 * k] + 8 * b * ptrs[2 * k + 1])
+                ops.append(torch.frombuffer(buf, dtype=torch.float64)
+                           .clone().reshape(shape))
+            row = imu_ops.imu_window_plain(*ops, eps_mass, eps_psd)
+            dst = (ctypes.c_double * L).from_address(out + 8 * b * L)
+            torch.frombuffer(dst, dtype=torch.float64).copy_(row)
+        return 0
+
+
+def test_imu_window_launch_reads_each_window_through_its_stride(monkeypatch):
+    """The wrapper's launch on operands laid out as the batching rule hands
+    them: a window sliced out of a longer sequence (instance stride > row),
+    gravity shared (stride 0), R_prev transposed (copied dense), leading
+    axes (2, 2); each window's row is its twin's, and one window is one
+    launch under its own counter."""
+    lib = _EmulatedLib()
+    monkeypatch.setattr(cuda_build, "library", lambda name: lib)
+    monkeypatch.setattr(cuda_build, "launch",
+                        lambda lib_, fn, what, dev, *a: fn(*a))
+    sets = [_iw_operands(s) for s in range(10, 14)]
+    ins = [torch.stack(ts) for ts in zip(*sets)]
+    seq = torch.stack([ins[0], ins[0] + 1.0, ins[0] + 2.0], 1)  # (4, 3, M)
+    ins[0] = seq[:, 0]
+    ins[9] = sets[0][9].expand(4, 3)
+    ins[10] = ins[10].transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert ins[0].stride(0) == 3 * 512 and ins[9].stride(0) == 0
+    before = dict(belief_kernels.launches)
+    rows = belief_kernels._imu_window_launch(ins, **_EPS)
+    nested = belief_kernels._imu_window_launch(
+        [t.reshape(2, 2, *t.shape[1:]) for t in ins], **_EPS)
+    one = belief_kernels._imu_window_launch(sets[1], **_EPS)
+    assert lib.calls == [4, 4, 1]
+    assert belief_kernels.launches["imu_window_batched"] == \
+        before["imu_window_batched"] + 2
+    assert belief_kernels.launches["imu_window"] == \
+        before["imu_window"] + 1
+    for b in range(4):
+        # dense fresh copies, as the emulation reads (the CPU's sums
+        # depend on where a tensor starts and how it is laid out)
+        want = imu_ops.imu_window_plain(
+            *[t[b].clone(memory_format=torch.contiguous_format) for t in ins],
+            **_EPS)
+        assert torch.equal(rows[b], want)
+        assert torch.equal(nested.reshape(4, -1)[b], want)
+    assert torch.equal(one, imu_ops.imu_window_plain(
+        *[t.clone(memory_format=torch.contiguous_format) for t in sets[1]],
+        **_EPS))
 
 
 # -- the plain versions against the JAX package at the kernels' edges ----
